@@ -1,0 +1,136 @@
+"""Host-side BVH builder → flat SoA arrays with stackless skip links.
+
+The reference's numpy median-split builder, unchanged: depth-first preorder
+where a box hit advances the cursor to i+1 and a miss (or a finished leaf)
+jumps to ``skip[i]``; triangles are reordered so every leaf owns a
+contiguous range. The triangle order it produces is the order every later
+table (clusters, lights) is built on, so it must equal the reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..scene.model import Scene
+
+
+@dataclasses.dataclass
+class FlatBVH:
+    lo: np.ndarray  # (N, 3) f32
+    hi: np.ndarray  # (N, 3) f32
+    first: np.ndarray  # (N,) i32: leaf → first triangle; interior → unused
+    count: np.ndarray  # (N,) i32: 0 interior, >0 leaf size
+    skip: np.ndarray  # (N,) i32: cursor on miss / after leaf
+    order: np.ndarray  # (T,) i32: new→old triangle permutation
+
+
+def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
+              max_leaf: int = 4) -> FlatBVH:
+    """Build the flat skip-link BVH over triangles (v0, v0+e1, v0+e2)."""
+    v0 = np.asarray(v0, np.float32)
+    p1 = v0 + np.asarray(e1, np.float32)
+    p2 = v0 + np.asarray(e2, np.float32)
+    T = len(v0)
+    if T == 0:
+        z3 = np.zeros((0, 3), np.float32)
+        z1 = np.zeros((0,), np.int32)
+        return FlatBVH(z3, z3, z1, z1, z1, z1)
+
+    tri_lo = np.minimum(np.minimum(v0, p1), p2)
+    tri_hi = np.maximum(np.maximum(v0, p1), p2)
+    centroid = (tri_lo + tri_hi) * 0.5
+
+    lo_l, hi_l, first_l, count_l, skip_l = [], [], [], [], []
+    order: list[int] = []
+
+    # Iterative DFS; a frame is ("node", tri_ids) to emit a subtree or
+    # ("skip", node_idx) to patch the skip pointer once it is emitted.
+    stack: list[tuple[str, object]] = [("node", np.arange(T, dtype=np.int64))]
+    while stack:
+        kind, payload = stack.pop()
+        if kind == "skip":
+            skip_l[payload] = len(lo_l)
+            continue
+        ids = payload
+        my = len(lo_l)
+        lo_l.append(tri_lo[ids].min(0))
+        hi_l.append(tri_hi[ids].max(0))
+        first_l.append(0)
+        count_l.append(0)
+        skip_l.append(-1)
+        stack.append(("skip", my))
+        if len(ids) <= max_leaf:
+            first_l[my] = len(order)
+            count_l[my] = len(ids)
+            order.extend(int(i) for i in ids)
+            continue
+        c = centroid[ids]
+        ext = c.max(0) - c.min(0)
+        axis = int(np.argmax(ext))
+        if ext[axis] <= 0.0:
+            mid = len(ids) // 2
+            left, right = ids[:mid], ids[mid:]
+        else:
+            part = np.argsort(c[:, axis], kind="stable")
+            mid = len(ids) // 2
+            left, right = ids[part[:mid]], ids[part[mid:]]
+        # Push right first so left (near side on the axis) is emitted at i+1.
+        stack.append(("node", right))
+        stack.append(("node", left))
+
+    return FlatBVH(
+        lo=np.asarray(lo_l, np.float32),
+        hi=np.asarray(hi_l, np.float32),
+        first=np.asarray(first_l, np.int32),
+        count=np.asarray(count_l, np.int32),
+        skip=np.asarray(skip_l, np.int32),
+        order=np.asarray(order, np.int32),
+    )
+
+
+# Above this many triangles the reference switches to its native SAH
+# builder, which the port does not have yet.
+AUTO_NATIVE_THRESHOLD = 100_000
+
+
+def with_bvh(scene: Scene, max_leaf: int = 4, engine: str = "auto") -> Scene:
+    """Scene with triangles reordered by leaf and BVH arrays attached.
+
+    engine: "numpy" or "auto" (numpy up to AUTO_NATIVE_THRESHOLD triangles).
+    The native builder ("native", or "auto" above the threshold) belongs to
+    the large-scene slice and raises NotImplementedError. Light triangle
+    indices are remapped through the permutation.
+    """
+    g = scene.geometry
+    n_tris = int(g.tri_v0.shape[0])
+    if engine == "native" or (engine == "auto"
+                              and n_tris > AUTO_NATIVE_THRESHOLD):
+        raise NotImplementedError(
+            "the native SAH BVH builder is not ported yet (large-scene slice)"
+        )
+    if engine not in ("auto", "numpy"):
+        raise ValueError(f"unknown BVH engine {engine!r}")
+    v0 = g.tri_v0.cpu().numpy()
+    e1 = g.tri_e1.cpu().numpy()
+    e2 = g.tri_e2.cpu().numpy()
+    bvh = build_bvh(v0, e1, e2, max_leaf)
+    perm = bvh.order  # new position i holds old triangle perm[i]
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm), dtype=np.int32)
+    g2 = g.replace(
+        tri_v0=v0[perm],
+        tri_e1=e1[perm],
+        tri_e2=e2[perm],
+        tri_n=g.tri_n.cpu().numpy()[perm],
+        tri_mat=g.tri_mat.cpu().numpy()[perm],
+        bvh_lo=bvh.lo,
+        bvh_hi=bvh.hi,
+        bvh_first=bvh.first,
+        bvh_count=bvh.count,
+        bvh_skip=bvh.skip,
+    )
+    tri_idx = inv[scene.lights.tri_idx.cpu().numpy()].astype(np.int32)
+    return scene.replace(geometry=g2,
+                         lights=scene.lights.replace(tri_idx=tri_idx))

@@ -1,0 +1,75 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
+``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at
+the repository root, keyed by a hash of the source and the flags, so a
+changed source rebuilds and an unchanged one loads at once. Only sources in
+the repository are compiled; nothing is fetched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# name -> loaded library / build record of this process.
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILDS: dict[str, dict] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
+                           "PATH to build the CUDA kernels")
+    return found
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The compiled ``csrc/<name>.cu``, built first if needed.
+
+    Records in ``BUILDS[name]`` the build seconds (0.0 when the library was
+    already built) and the compiler's resource report.
+    """
+    if name in _LIBS:
+        return _LIBS[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    record = {"seconds": 0.0, "log": "", "path": str(out)}
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+        record.update(seconds=time.perf_counter() - t0, log=proc.stderr)
+    lib = ctypes.CDLL(str(out))
+    _LIBS[name] = lib
+    BUILDS[name] = record
+    return lib

@@ -1,0 +1,409 @@
+"""Cluster closest-hit intersection: the port's main-path intersector.
+
+The reference's ``ops/intersect_cluster.py`` in two parts:
+
+  glue (plain PyTorch, as it is plain XLA in the reference): the scene-box
+      exit bound, the ray features, the per-ray cluster line cull, the
+      per-block near-first candidate lists, the winner decode and the
+      sphere merge. The cull granularity is the reference's 512-ray block,
+      so candidate lists equal the reference's.
+
+  fine test (``cluster_hit``): per 512-ray block, walk the candidate
+      clusters front to back and test each cluster's 128 triangles; stop
+      once no ray's best hit lies beyond the next cluster's entry bound.
+      On a CUDA tensor this launches the hand-written kernel in
+      ``csrc/intersect_cluster.cu``; on a CPU tensor it runs
+      ``cluster_hit_plain``, the plain PyTorch version of the same contract.
+
+Contract: the same hit set as engine/intersect.py:brute (same DET_EPS/T_MIN
+predicate, in multiply-by-|det| form); t agrees to f32 tolerance; which of
+two triangles at an equal t wins may differ.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import constants as C
+from ..accel.clusters import CLUSTER_COLS, CLUSTER_TRIS, FEAT_ROWS
+from ..engine.intersect import merge_spheres
+from . import _build
+
+RAY_BLOCK = 512  # rays per cull block = rays per CUDA thread block
+RAY_FEATS = 11  # ray-feature rows: 10 pair with the table, row 10 = t_max
+_FEAT_USED = 10
+
+# The reference routes a scene to its cluster kernel while the 48-row bf16
+# table fits 10 MiB of TPU VMEM (~213 clusters). The port keeps that bound
+# so the same scenes reach the cluster kernel in both packages; a rule
+# measured on the H100 replaces it with the large-scene slice.
+_ROUTE_TABLE_BYTES = 10 * 1024 * 1024
+_REFERENCE_BYTES_PER_COL = 48 * 2
+
+# Per-ray line cull at cluster granularity up to this many clusters, else
+# at super-cluster granularity (every cluster-routed scene is below it).
+RAY_CULL_MAX_C = 512
+
+# Kernel launches through cluster_hit (CUDA tensors only).
+LAUNCHES = 0
+
+
+def routes_to_cluster(n_clusters: int) -> bool:
+    return n_clusters * CLUSTER_COLS * _REFERENCE_BYTES_PER_COL \
+        <= _ROUTE_TABLE_BYTES
+
+
+def _safe_inverse(d: torch.Tensor) -> torch.Tensor:
+    tiny = 1e-20
+    dd = torch.where(d.abs() < tiny, torch.where(d < 0, -tiny, tiny), d)
+    return 1.0 / dd
+
+
+def exit_bound(cl_lo, cl_hi, o, d):
+    """Per-ray exit distance from the union box of all clusters.
+
+    No ray can hit anything beyond it, so best-t starts there: rays that
+    miss the scene finish their ordered walk early. The small relative and
+    absolute epsilon keeps triangles on a box face inside the bound; the
+    clamp keeps it at or below T_FAR.
+    """
+    lo = cl_lo.min(dim=0).values
+    hi = cl_hi.max(dim=0).values
+    inv = _safe_inverse(d)
+    t0 = (lo[None, :] - o) * inv
+    t1 = (hi[None, :] - o) * inv
+    t_exit = torch.maximum(t0, t1).min(dim=-1).values
+    return torch.clamp(torch.clamp(t_exit, min=0.0) * 1.0001 + 1e-3,
+                       max=C.T_FAR)
+
+
+def ray_features(o, d, t_max):
+    """(R, 3) origins/directions + (R,) t_max -> planar (11, R) rows.
+
+    Rows [d(3), o x d(3), o(3), 1] pair with the table's feature columns;
+    row 10 is the per-ray initial best-t (hits at t >= t_max may be
+    reported as misses).
+    """
+    R = o.shape[0]
+    ones = torch.ones((1, R), dtype=torch.float32, device=o.device)
+    return torch.cat([
+        d.T, torch.linalg.cross(o, d).T, o.T, ones,
+        t_max.to(torch.float32).reshape(1, R),
+    ], dim=0).contiguous()
+
+
+def _interval_prod_bounds(xlo, xhi, ylo, yhi):
+    """Elementwise interval product bounds: [xlo,xhi] * [ylo,yhi]."""
+    p1 = xlo * ylo
+    p2 = xlo * yhi
+    p3 = xhi * ylo
+    p4 = xhi * yhi
+    pmin = torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4))
+    pmax = torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4))
+    return pmin, pmax
+
+
+def block_cluster_intervals(cl_lo, cl_hi, o, d):
+    """Conservative per-(block, cluster) slab-test intervals.
+
+    Returns (tnear_lo, tfar_hi), each (B, C): a lower bound of the entry
+    distance and an upper bound of the exit distance of cluster c for any
+    ray of block b.
+    """
+    B = o.shape[0] // RAY_BLOCK
+    inv = _safe_inverse(d)
+    o_b = o.reshape(B, RAY_BLOCK, 3)
+    i_b = inv.reshape(B, RAY_BLOCK, 3)
+    olo = o_b.min(dim=1).values[:, None, :]  # (B, 1, 3)
+    ohi = o_b.max(dim=1).values[:, None, :]
+    ilo = i_b.min(dim=1).values[:, None, :]
+    ihi = i_b.max(dim=1).values[:, None, :]
+    a_lo = cl_lo[None, :, :] - ohi  # (B, C, 3) lower end of (lo - o)
+    a_hi = cl_lo[None, :, :] - olo
+    b_lo = cl_hi[None, :, :] - ohi
+    b_hi = cl_hi[None, :, :] - olo
+    pmin_a, pmax_a = _interval_prod_bounds(a_lo, a_hi, ilo, ihi)
+    pmin_b, pmax_b = _interval_prod_bounds(b_lo, b_hi, ilo, ihi)
+    tnear_lo = torch.minimum(pmin_a, pmin_b).max(dim=-1).values
+    tfar_hi = torch.maximum(pmax_a, pmax_b).min(dim=-1).values
+    return tnear_lo, tfar_hi
+
+
+def ray_cluster_mask(cl_lo, cl_hi, o, d, t_max):
+    """(B, C) per-ray line cull at cluster granularity.
+
+    Every ray is slab-tested against every (slightly inflated) cluster box
+    within its own [T_MIN, t_max]; cluster c survives for block b iff some
+    ray of b crosses it. A hit at t < t_max lies inside its cluster's box,
+    so this never drops a hit.
+    """
+    R = o.shape[0]
+    inv = _safe_inverse(d)
+    pad = 1e-6 * torch.maximum(cl_lo.abs(), cl_hi.abs()) + 1e-7
+    lo = cl_lo - pad
+    hi = cl_hi + pad
+    n = cl_lo.shape[0]
+    t_in = torch.full((R, n), -torch.inf, dtype=torch.float32,
+                      device=o.device)
+    t_out = torch.full((R, n), torch.inf, dtype=torch.float32,
+                       device=o.device)
+    for ax in range(3):
+        t0 = (lo[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        t1 = (hi[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        t_in = torch.maximum(t_in, torch.minimum(t0, t1))
+        t_out = torch.minimum(t_out, torch.maximum(t0, t1))
+    crossed = (t_out >= torch.clamp(t_in, min=C.T_MIN)) \
+        & (t_in <= t_max[:, None])
+    return crossed.reshape(R // RAY_BLOCK, RAY_BLOCK, n).any(dim=1)
+
+
+def ray_super_mask(su_lo, su_hi, cl_super, o, d, t_max):
+    """(B, C) per-ray line cull at super-cluster granularity: cluster c
+    survives for block b iff some ray of b crosses super(c) within its own
+    [T_MIN, t_max]."""
+    R = o.shape[0]
+    inv = _safe_inverse(d)
+    t0 = (su_lo[None, :, :] - o[:, None, :]) * inv[:, None, :]  # (R, S, 3)
+    t1 = (su_hi[None, :, :] - o[:, None, :]) * inv[:, None, :]
+    t_in = torch.minimum(t0, t1).max(dim=-1).values
+    t_out = torch.maximum(t0, t1).min(dim=-1).values
+    crossed = (t_out >= torch.clamp(t_in, min=C.T_MIN)) \
+        & (t_in <= t_max[:, None])
+    block_super = crossed.reshape(R // RAY_BLOCK, RAY_BLOCK, -1).any(dim=1)
+    return block_super[:, cl_super.to(torch.int64)]
+
+
+def cull_candidates(cl_lo, cl_hi, o, d, t_max=None, extra_mask=None):
+    """Per-block candidate cluster lists, near-first.
+
+    The conservative interval slab test of block_cluster_intervals, ANDed
+    with `extra_mask` ((B, C) bool), and with per-ray `t_max` also dropping
+    clusters that start beyond the block's farthest bound. Candidates are
+    sorted by the lower bound of their entry distance (stable sort; ties
+    only change the visit order).
+
+    Returns (cand, count, tnear):
+      cand: (B, C) i32 cluster ids, -1 padded
+      count: (B,) i32 number of valid candidates per block
+      tnear: (B, C) f32 sorted entry-distance lower bounds (T_FAR padded)
+    """
+    tnear_lo, tfar_hi = block_cluster_intervals(cl_lo, cl_hi, o, d)
+    hit = tfar_hi >= torch.clamp(tnear_lo, min=C.T_MIN)
+    if t_max is not None:
+        block_tmax = t_max.reshape(-1, RAY_BLOCK).max(dim=1).values
+        hit = hit & (tnear_lo < block_tmax[:, None])
+    if extra_mask is not None:
+        hit = hit & extra_mask
+    count = hit.sum(dim=1).to(torch.int32)
+    key = torch.where(hit, tnear_lo, torch.inf)
+    order = torch.argsort(key, dim=1, stable=True)
+    tkey = torch.gather(key, 1, order)
+    rank = torch.arange(order.shape[1], device=o.device)[None, :]
+    in_range = rank < count[:, None]
+    cand = torch.where(in_range, order, -1).to(torch.int32)
+    tnear = torch.where(in_range, tkey, C.T_FAR)
+    return cand.contiguous(), count, tnear.contiguous()
+
+
+def _check_hit_inputs(cand, count, tnear, rayf, feat):
+    if cand.dim() != 2:
+        raise ValueError(f"cand must be (B, K); got {tuple(cand.shape)}")
+    B, K = cand.shape
+    expect = {
+        "cand": (cand, torch.int32, (B, K)),
+        "count": (count, torch.int32, (B,)),
+        "tnear": (tnear, torch.float32, (B, K)),
+        "rayf": (rayf, torch.float32, (RAY_FEATS, B * RAY_BLOCK)),
+    }
+    for name, (x, dtype, shape) in expect.items():
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}; got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    if (feat.dtype != torch.float32 or feat.dim() != 2
+            or feat.shape[0] != FEAT_ROWS or feat.shape[1] == 0
+            or feat.shape[1] % CLUSTER_COLS):
+        raise ValueError("feat must be float32 (16, C*512) with C >= 1; got "
+                         f"{feat.dtype} {tuple(feat.shape)}")
+    for name, x in (("cand", cand), ("count", count), ("tnear", tnear),
+                    ("rayf", rayf), ("feat", feat)):
+        if x.device != rayf.device:
+            raise ValueError(f"{name} is on {x.device}, rayf on {rayf.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def cluster_hit_plain(cand, count, tnear, rayf, feat,
+                      chunk_blocks: int = 256):
+    """Plain PyTorch version of the cluster kernel's contract.
+
+    Args:
+      cand: (B, K) i32 candidate cluster ids per 512-ray block (-1 pads).
+      count: (B,) i32 valid candidates per block (clamped to K).
+      tnear: (B, K) f32 entry-distance lower bounds (unused here: without
+        the early exit every valid candidate is tested, which cannot change
+        the hit set).
+      rayf: (11, R) f32 ray features, R = 512 * B; row 10 is the initial
+        best-t.
+      feat: (16, C*512) f32 cluster feature table.
+
+    Returns (t, slot, visits): (R,) f32 best t (row 10 where nothing
+    nearer), (R,) i32 winning padded slot cid*128 + row or -1, (B,) i32
+    clusters tested per block. Ties keep the lower row, then the earlier
+    visit. Works block chunk by block chunk to bound memory. Products and
+    sums round one at a time in the order the CUDA kernel uses, so on the
+    card both give the same bits.
+    """
+    _check_hit_inputs(cand, count, tnear, rayf, feat)
+    B, K = cand.shape
+    dev = rayf.device
+    n_cand = torch.clamp(count, max=K).to(torch.int64)
+    rays = rayf[:_FEAT_USED].T.reshape(B, RAY_BLOCK, _FEAT_USED)
+    t_best = rayf[_FEAT_USED].reshape(B, RAY_BLOCK).clone()
+    best = torch.full((B, RAY_BLOCK), -1, dtype=torch.int32, device=dev)
+    n_clusters = feat.shape[1] // CLUSTER_COLS
+    feat_c = feat[:_FEAT_USED].reshape(_FEAT_USED, n_clusters, CLUSTER_COLS)
+    feat_c = feat_c.permute(1, 0, 2)  # (C, 10, 512)
+    n = CLUSTER_TRIS
+    # Elementwise products only: no matrix product, so TF32 never applies.
+    for b0 in range(0, B, chunk_blocks):
+        b1 = min(B, b0 + chunk_blocks)
+        r = rays[b0:b1]
+        nc = n_cand[b0:b1]
+        tb = t_best[b0:b1]
+        bs = best[b0:b1]
+        for k in range(int(nc.max())):
+            cid = torch.clamp(cand[b0:b1, k].to(torch.int64), 0,
+                              n_clusters - 1)
+            f = feat_c[cid]  # (Bc, 10, 512)
+            q = r[:, :, 0, None] * f[:, None, 0, :]  # (Bc, 512, 512)
+            for i in range(1, _FEAT_USED):
+                q = q + r[:, :, i, None] * f[:, None, i, :]
+            s = torch.where(q[:, :, 0:n] < 0.0, -1.0, 1.0)
+            adet = q[:, :, 0:n] * s
+            un = q[:, :, n:2 * n] * s
+            vn = q[:, :, 2 * n:3 * n] * s
+            tn = q[:, :, 3 * n:4 * n] * s
+            valid = ((adet > C.DET_EPS) & (un >= 0.0) & (vn >= 0.0)
+                     & (un + vn <= adet) & (tn > adet * C.T_MIN))
+            tc = torch.where(valid, tn / torch.clamp(adet, min=1e-30),
+                             2.0 * C.T_FAR)
+            tmin, row = tc.min(dim=2)
+            better = (tmin < tb) & (k < nc)[:, None]
+            bs.copy_(torch.where(better, (cid[:, None] * n + row)
+                                 .to(torch.int32), bs))
+            tb.copy_(torch.where(better, tmin, tb))
+    return t_best.reshape(-1), best.reshape(-1), n_cand.to(torch.int32)
+
+
+def _kernel():
+    fn = _build.load("intersect_cluster").cluster_hit_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cluster_hit(cand, count, tnear, rayf, feat):
+    """Cluster closest hit of every ray block (see cluster_hit_plain).
+
+    CPU tensors run the plain version. CUDA tensors launch the CUDA kernel
+    (built at first use) on the current stream, with the ordered early
+    exit, and count the launch in LAUNCHES; a failed launch raises.
+    Returns (t, slot, visits) as cluster_hit_plain does, except that
+    visits counts the clusters the early-exiting walk actually tested.
+    """
+    global LAUNCHES
+    _check_hit_inputs(cand, count, tnear, rayf, feat)
+    dev = rayf.device
+    if dev.type == "cpu":
+        return cluster_hit_plain(cand, count, tnear, rayf, feat)
+    if dev.type != "cuda":
+        raise ValueError(f"cluster_hit runs on cpu or cuda, not {dev}")
+    B, K = cand.shape
+    R = rayf.shape[1]
+    t = torch.empty((R,), dtype=torch.float32, device=dev)
+    slot = torch.empty((R,), dtype=torch.int32, device=dev)
+    visits = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return t, slot, visits
+    launch = _kernel()
+    with torch.cuda.device(dev):
+        err = launch(
+            cand.data_ptr(), count.data_ptr(), tnear.data_ptr(),
+            rayf.data_ptr(), feat.data_ptr(), t.data_ptr(), slot.data_ptr(),
+            visits.data_ptr(), B, K, feat.shape[1] // CLUSTER_COLS, R,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"cluster_hit kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    return t, slot, visits
+
+
+def _pad_rays(o, d, t_max):
+    """Pad rays to a whole block: zero-work point rays (o=0, d=+z) whose
+    t_max is T_MIN, so they never widen the block's early-exit bound."""
+    pad = (-o.shape[0]) % RAY_BLOCK
+    if pad:
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_tensor([[0.0, 0.0, 1.0]]).expand(pad, 3)])
+        if t_max is not None:
+            t_max = torch.cat([t_max.to(torch.float32),
+                               t_max.new_full((pad,), C.T_MIN,
+                                              dtype=torch.float32)])
+    return o, d, t_max
+
+
+def decode_winner(geom, slot, t_best):
+    """(t, n, mat) of each ray's winning padded slot via the pre-joined
+    per-slot [n(3), mat, valid] rows; t is T_FAR where nothing was hit."""
+    row_nm = geom.cl_slot_nm[torch.clamp(slot, min=0).to(torch.int64)]
+    hit = (slot >= 0) & (row_nm[:, 4] > 0.0)
+    n_best = torch.where(hit[:, None], row_nm[:, 0:3], 0.0)
+    m_best = torch.where(hit, row_nm[:, 3].to(torch.int32), 0)
+    return torch.where(hit, t_best, C.T_FAR), n_best, m_best
+
+
+def closest_hit_cluster(geom, o, d, t_max=None, use_cull: bool = True):
+    """Closest hit through the cluster tables: (t, n_geom, mat), t == T_FAR
+    on a miss (the engine/intersect.py:brute contract).
+
+    t_max: optional (R,) per-ray bound; hits at t >= t_max[i] may read as
+    misses (right for shadow queries), hits strictly nearer are found.
+    use_cull=False tests every cluster in index order with no early exit.
+    Spheres are merged by brute force.
+    """
+    n_clusters = int(geom.cl_lo.shape[0])
+    if n_clusters == 0:
+        raise ValueError("no cluster tables: call with_clusters(scene)")
+    R0 = o.shape[0]
+    o_p, d_p, t_max_p = _pad_rays(o, d, t_max)
+    t_exit = exit_bound(geom.cl_lo, geom.cl_hi, o_p, d_p)
+    t_max_p = t_exit if t_max_p is None else torch.minimum(t_max_p, t_exit)
+    rayf = ray_features(o_p, d_p, t_max_p)
+    B = o_p.shape[0] // RAY_BLOCK
+    if use_cull:
+        extra = None
+        if 1 < n_clusters <= RAY_CULL_MAX_C:
+            extra = ray_cluster_mask(geom.cl_lo, geom.cl_hi, o_p, d_p,
+                                     t_max_p)
+        elif geom.su_lo.shape[0] > 1:
+            extra = ray_super_mask(geom.su_lo, geom.su_hi, geom.cl_super,
+                                   o_p, d_p, t_max_p)
+        cand, count, tnear = cull_candidates(
+            geom.cl_lo, geom.cl_hi, o_p, d_p, t_max=t_max_p,
+            extra_mask=extra,
+        )
+    else:
+        cand = torch.arange(n_clusters, dtype=torch.int32, device=o.device)
+        cand = cand.expand(B, n_clusters).contiguous()
+        count = torch.full((B,), n_clusters, dtype=torch.int32,
+                           device=o.device)
+        tnear = torch.full((B, n_clusters), -torch.inf, dtype=torch.float32,
+                           device=o.device)
+    t_best, slot, _ = cluster_hit(cand, count, tnear, rayf, geom.cl_feat)
+    t_out, n_best, m_best = decode_winner(geom, slot[:R0], t_best[:R0])
+    return merge_spheres(geom, o, d, t_out, n_best, m_best)
