@@ -2,9 +2,9 @@
 
 The port of ``pathtracer_tpu`` for one NVIDIA H100, module for module
 (the same layout, so each counterpart is easy to find). It imports torch
-and numpy, never JAX. The intersection hot loop is a hand-written CUDA
-kernel (ops/csrc/intersect_cluster.cu), built with nvcc at first use; every
-kernel has a plain PyTorch version that CPU tensors run.
+and numpy, never JAX. The intersection hot loops are hand-written CUDA
+kernels (ops/csrc/), built with nvcc at first use; every kernel has a plain
+PyTorch version that CPU tensors run.
 """
 
 from .config import PRESETS, RenderConfig

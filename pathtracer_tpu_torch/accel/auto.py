@@ -1,10 +1,11 @@
 """Backend-aware acceleration-table preparation.
 
-Builds the host-side tables a RenderConfig's backend needs. Only the
-cluster route is ported: where the reference would send a scene to its grid
-or streaming kernel (a cluster table above its routing bound, or
-backend="grid"/"stream"), this raises NotImplementedError, so the same
-scenes reach the cluster kernel in both packages.
+Builds the host-side tables a RenderConfig's backend needs, with the
+reference's routing: a scene whose cluster table is above the cluster
+route's bound (ops/intersect_cluster.py:routes_to_cluster, the reference's
+bound, kept so the same scenes take the same route in both packages) gets
+grid tables instead, and engine/wavefront.py:_intersector sends it to the
+grid intersector. backend="stream" is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -13,30 +14,32 @@ from ..config import RenderConfig
 from ..ops.intersect_cluster import routes_to_cluster
 from ..scene.model import Scene
 from .clusters import CLUSTER_TRIS, with_clusters
+from .grid import with_grid
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1)"
-    )
-
-
-def prepare_accel(scene: Scene, cfg: RenderConfig) -> Scene:
+def prepare_accel(scene: Scene, cfg: RenderConfig,
+                  grid_axis: int | None = None) -> Scene:
     """Attach the accel tables `cfg.backend` needs (host-side numpy).
 
-    backend="cluster": dense cluster tables. backend="jnp"/"pallas": nothing
-    beyond the BVH built upstream. backend="grid"/"stream", and cluster
-    scenes the reference would route to its grid, raise.
+    backend="cluster": dense cluster tables when they are within the cluster
+        route's bound, else grid tables.
+    backend="grid": uniform-grid tables (`grid_axis` overrides pick_axis).
+    backend="jnp"/"pallas": nothing beyond the BVH built upstream.
+    backend="stream" raises NotImplementedError.
     """
-    if cfg.backend in ("grid", "stream"):
-        raise _not_ported(f'backend="{cfg.backend}"')
+    if cfg.backend == "stream":
+        raise NotImplementedError('backend="stream" is not ported yet '
+                                  "(ROADMAP.md queue 1)")
+    if cfg.backend == "grid":
+        return with_grid(scene, axis=grid_axis)
     if cfg.backend != "cluster":
         return scene
-    # ceil(T/128) is a lower bound on the cluster count.
+    # ceil(T/128) is a lower bound on the cluster count, so a failing
+    # estimate is definitive and skips the cluster build.
     n_tris = int(scene.geometry.tri_v0.shape[0])
     if not routes_to_cluster(-(-n_tris // CLUSTER_TRIS)):
-        raise _not_ported("the large-scene grid route")
-    scene = with_clusters(scene)
-    if not routes_to_cluster(int(scene.geometry.cl_lo.shape[0])):
-        raise _not_ported("the large-scene grid route")
-    return scene
+        return with_grid(scene, axis=grid_axis)
+    clustered = with_clusters(scene)
+    if not routes_to_cluster(int(clustered.geometry.cl_lo.shape[0])):
+        return with_grid(scene, axis=grid_axis)
+    return clustered

@@ -90,32 +90,35 @@ def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
     )
 
 
-# Above this many triangles the reference switches to its native SAH
-# builder, which the port does not have yet.
+# Above this many triangles `with_bvh(engine="auto")` switches to the native
+# binned-SAH builder (accel/native.py), as the reference does.
 AUTO_NATIVE_THRESHOLD = 100_000
 
 
 def with_bvh(scene: Scene, max_leaf: int = 4, engine: str = "auto") -> Scene:
     """Scene with triangles reordered by leaf and BVH arrays attached.
 
-    engine: "numpy" or "auto" (numpy up to AUTO_NATIVE_THRESHOLD triangles).
-    The native builder ("native", or "auto" above the threshold) belongs to
-    the large-scene slice and raises NotImplementedError. Light triangle
-    indices are remapped through the permutation.
+    engine: "numpy" (median split), "native" (the C++ binned-SAH builder of
+    accel/native.py) or "auto" (numpy up to AUTO_NATIVE_THRESHOLD triangles,
+    native above). Unlike the reference, "auto" never falls back to numpy
+    when the native library cannot be built: it raises, since the fallback
+    gives another triangle order. Light triangle indices are remapped
+    through the permutation.
     """
+    if engine not in ("auto", "numpy", "native"):
+        raise ValueError(f"unknown BVH engine {engine!r}")
     g = scene.geometry
     n_tris = int(g.tri_v0.shape[0])
-    if engine == "native" or (engine == "auto"
-                              and n_tris > AUTO_NATIVE_THRESHOLD):
-        raise NotImplementedError(
-            "the native SAH BVH builder is not ported yet (large-scene slice)"
-        )
-    if engine not in ("auto", "numpy"):
-        raise ValueError(f"unknown BVH engine {engine!r}")
     v0 = g.tri_v0.cpu().numpy()
     e1 = g.tri_e1.cpu().numpy()
     e2 = g.tri_e2.cpu().numpy()
-    bvh = build_bvh(v0, e1, e2, max_leaf)
+    if engine == "native" or (engine == "auto"
+                              and n_tris > AUTO_NATIVE_THRESHOLD):
+        from .native import build_bvh_native
+
+        bvh = build_bvh_native(v0, e1, e2, max_leaf)
+    else:
+        bvh = build_bvh(v0, e1, e2, max_leaf)
     perm = bvh.order  # new position i holds old triangle perm[i]
     inv = np.empty_like(perm)
     inv[perm] = np.arange(len(perm), dtype=np.int32)

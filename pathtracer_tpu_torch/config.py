@@ -30,9 +30,11 @@ class RenderConfig:
       use_bvh: build the flat BVH (its triangle order and root box are used
         by every backend; the BVH walk itself is not ported yet).
       backend: "cluster" (the hand-written CUDA cluster intersector,
-        ops/intersect_cluster.py) or "jnp" (brute force when use_bvh is
-        off). "grid", "stream" and "pallas", and the BVH walk behind "jnp",
-        raise NotImplementedError until their slices are ported.
+        ops/intersect_cluster.py; scenes above its bound go to the grid),
+        "grid" (per-ray DDA over a uniform grid with the CUDA pair kernel,
+        ops/intersect_grid.py) or "jnp" (brute force when use_bvh is off).
+        "stream" and "pallas", and the BVH walk behind "jnp", raise
+        NotImplementedError until their slices are ported.
       compact: stream-compact (coherence-sort) the ray buffer between
         bounces.
       mis: multiple importance sampling (power heuristic) between NEE and
@@ -88,7 +90,7 @@ PRESETS: dict[str, RenderConfig] = {
         width=128, height=128, spp=4, max_depth=2, scene="cornell_spheres",
         use_bvh=False,
     ),
-    # 5. 2M-triangle scene on the grid backend (not ported yet).
+    # 5. 2M-triangle scene on the grid backend.
     "config5": RenderConfig(
         width=1024, height=1024, spp=1, max_depth=4, scene="big_mesh",
         use_bvh=True, spp_chunk=1, backend="grid",

@@ -45,17 +45,43 @@ def _not_ported(what: str) -> NotImplementedError:
                                "queue 1)")
 
 
+def _grid_hit():
+    from ..ops import intersect_grid
+
+    def hit(g, o, d, t_max=None, sparse_hint=False):
+        # Ladder-only mode (no full-width stage A) where most lanes are dead.
+        return intersect_grid.closest_hit_grid(
+            g, o, d, t_max=t_max,
+            first_steps=0 if sparse_hint else intersect_grid.FIRST_STEPS)
+
+    hit.impl = "grid"
+    return hit
+
+
 def _intersector(geom, cfg: RenderConfig):
     """The closest-hit function for this scene and config.
 
-    Every route has the signature hit(g, o, d, t_max=None). "cluster" with
-    cluster tables that the reference routes to its cluster kernel takes
-    ops/intersect_cluster.py; scenes without a BVH (or use_bvh off) take
-    brute force. The grid, stream and BVH-walk routes raise until their
-    slices are ported.
+    Every route has the signature hit(g, o, d, t_max=None,
+    sparse_hint=False); `hit.impl` names it. t_max is the shadow bound
+    (hits at t >= t_max may read as misses); sparse_hint marks calls where
+    most lanes are dead, which only the grid route reads. Routes:
+    "grid" with grid tables takes ops/intersect_grid.py; "cluster" takes
+    ops/intersect_cluster.py when its table is within the cluster route's
+    bound, else the grid when the scene has grid tables (the
+    accel/auto.py route). Scenes without a BVH (or use_bvh off) take brute
+    force. Unlike the reference, nothing falls through with a warning:
+    "grid" without grid tables and a cluster table above the bound without
+    them raise, as do the stream and BVH-walk routes, not ported yet.
     """
-    if cfg.backend in ("grid", "stream"):
-        raise _not_ported(f'backend="{cfg.backend}"')
+    has_grid = geom.gr_cell_start.shape[0] > 1
+    if cfg.backend == "grid":
+        if not has_grid:
+            raise ValueError('backend="grid" needs grid tables: build the '
+                             "scene with accel.auto.prepare_accel (or "
+                             "accel.grid.with_grid)")
+        return _grid_hit()
+    if cfg.backend == "stream":
+        raise _not_ported('backend="stream"')
     if cfg.backend == "cluster" and geom.cl_lo.shape[0] > 0:
         from ..ops.intersect_cluster import (
             closest_hit_cluster,
@@ -63,18 +89,24 @@ def _intersector(geom, cfg: RenderConfig):
         )
 
         if not routes_to_cluster(int(geom.cl_lo.shape[0])):
-            raise _not_ported("the large-scene grid route")
+            if has_grid:
+                return _grid_hit()
+            raise _not_ported(
+                "a cluster table above the cluster route's bound without "
+                "grid tables needs the stream route, which")
 
-        def hit(g, o, d, t_max=None):
+        def hit(g, o, d, t_max=None, sparse_hint=False):
             return closest_hit_cluster(g, o, d, t_max=t_max)
 
+        hit.impl = "cluster"
         return hit
     if cfg.use_bvh and geom.bvh_lo.shape[0] > 0:
         raise _not_ported(f'the BVH walk (backend="{cfg.backend}")')
 
-    def hit(g, o, d, t_max=None):
+    def hit(g, o, d, t_max=None, sparse_hint=False):
         return isect.brute(g, o, d)
 
+    hit.impl = "brute"
     return hit
 
 
@@ -180,7 +212,12 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
         o_q = torch.where(alive[:, None], o, 0.0)
         d_q = torch.where(alive[:, None], d, canon)
         t_cap = torch.where(alive, C.T_FAR, C.T_MIN)
-        t, n_geom, mat = intersect(geometry, o_q, d_q, t_max=t_cap)
+        # Late bounces are mostly dead lanes (misses, roulette): there the
+        # grid route skips its full-width first phase (the reference's
+        # choice of bounce >= 3).
+        sparse = bounce >= 3
+        t, n_geom, mat = intersect(geometry, o_q, d_q, t_max=t_cap,
+                                   sparse_hint=sparse)
         hit = t < C.T_FAR
         mrow = take_rows(mat_rows, mat)
         alb_m = mrow[:, 0:3]
@@ -237,7 +274,8 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
             o_shq = torch.where(cand[:, None], o_sh, 0.0)
             wi_q = torch.where(cand[:, None], wi, canon)
             t_sh_cap = torch.where(cand, dist, C.T_MIN)
-            t_sh, _, _ = intersect(geometry, o_shq, wi_q, t_max=t_sh_cap)
+            t_sh, _, _ = intersect(geometry, o_shq, wi_q, t_max=t_sh_cap,
+                                   sparse_hint=sparse)
             vis = t_sh >= dist * (1.0 - C.SHADOW_REL_EPS)
             geo_term = (cos_s * cos_l * total_area
                         / torch.clamp(dist * dist, min=1e-12))

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at
-the repository root, keyed by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads at once. Only sources in
-the repository are compiled; nothing is fetched.
+the repository root, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source rebuilds and an
+unchanged one loads at once. Only sources in the repository are compiled;
+nothing is fetched.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     record = {"seconds": 0.0, "log": "", "path": str(out)}

@@ -37,8 +37,8 @@ _FEAT_USED = 10
 
 # The reference routes a scene to its cluster kernel while the 48-row bf16
 # table fits 10 MiB of TPU VMEM (~213 clusters). The port keeps that bound
-# so the same scenes reach the cluster kernel in both packages; a rule
-# measured on the H100 replaces it with the large-scene slice.
+# so the same scenes reach the cluster kernel (and, above it, the grid) in
+# both packages; a bound measured on the H100 is still open (PERF.md).
 _ROUTE_TABLE_BYTES = 10 * 1024 * 1024
 _REFERENCE_BYTES_PER_COL = 48 * 2
 
@@ -263,10 +263,7 @@ def cluster_hit_plain(cand, count, tnear, rayf, feat,
     t_best = rayf[_FEAT_USED].reshape(B, RAY_BLOCK).clone()
     best = torch.full((B, RAY_BLOCK), -1, dtype=torch.int32, device=dev)
     n_clusters = feat.shape[1] // CLUSTER_COLS
-    feat_c = feat[:_FEAT_USED].reshape(_FEAT_USED, n_clusters, CLUSTER_COLS)
-    feat_c = feat_c.permute(1, 0, 2)  # (C, 10, 512)
-    n = CLUSTER_TRIS
-    # Elementwise products only: no matrix product, so TF32 never applies.
+    feat_c = cluster_major(feat)
     for b0 in range(0, B, chunk_blocks):
         b1 = min(B, b0 + chunk_blocks)
         r = rays[b0:b1]
@@ -276,25 +273,45 @@ def cluster_hit_plain(cand, count, tnear, rayf, feat,
         for k in range(int(nc.max())):
             cid = torch.clamp(cand[b0:b1, k].to(torch.int64), 0,
                               n_clusters - 1)
-            f = feat_c[cid]  # (Bc, 10, 512)
-            q = r[:, :, 0, None] * f[:, None, 0, :]  # (Bc, 512, 512)
-            for i in range(1, _FEAT_USED):
-                q = q + r[:, :, i, None] * f[:, None, i, :]
-            s = torch.where(q[:, :, 0:n] < 0.0, -1.0, 1.0)
-            adet = q[:, :, 0:n] * s
-            un = q[:, :, n:2 * n] * s
-            vn = q[:, :, 2 * n:3 * n] * s
-            tn = q[:, :, 3 * n:4 * n] * s
-            valid = ((adet > C.DET_EPS) & (un >= 0.0) & (vn >= 0.0)
-                     & (un + vn <= adet) & (tn > adet * C.T_MIN))
-            tc = torch.where(valid, tn / torch.clamp(adet, min=1e-30),
-                             2.0 * C.T_FAR)
-            tmin, row = tc.min(dim=2)
-            better = (tmin < tb) & (k < nc)[:, None]
-            bs.copy_(torch.where(better, (cid[:, None] * n + row)
-                                 .to(torch.int32), bs))
-            tb.copy_(torch.where(better, tmin, tb))
+            visit_plain(r, feat_c[cid], cid, k < nc, tb, bs)
     return t_best.reshape(-1), best.reshape(-1), n_cand.to(torch.int32)
+
+
+def cluster_major(feat: torch.Tensor) -> torch.Tensor:
+    """(16, C*512) table -> (C, 10, 512) view of the used rows by cluster."""
+    n_clusters = feat.shape[1] // CLUSTER_COLS
+    return feat[:_FEAT_USED].reshape(_FEAT_USED, n_clusters,
+                                     CLUSTER_COLS).permute(1, 0, 2)
+
+
+def visit_plain(r, f, cid, enabled, t_best, best) -> None:
+    """One cluster visit per block, in place: the plain version of the
+    per-triangle test the CUDA kernels share (csrc/visit.cuh).
+
+    r: (Bc, L, 10) ray features of each block's L lanes; f: (Bc, 10, 512)
+    the visited cluster's columns; cid: (Bc,) its id; enabled: (Bc,) bool.
+    t_best (Bc, L) f32 and best (Bc, L) i32 take strictly nearer hits (ties
+    keep the lower row, then the earlier visit). Products and sums round one
+    at a time in the kernel's order, and there is no matrix product, so
+    TF32 never applies: on the card both give the same bits.
+    """
+    n = CLUSTER_TRIS
+    q = r[:, :, 0, None] * f[:, None, 0, :]  # (Bc, L, 512)
+    for i in range(1, _FEAT_USED):
+        q = q + r[:, :, i, None] * f[:, None, i, :]
+    s = torch.where(q[:, :, 0:n] < 0.0, -1.0, 1.0)
+    adet = q[:, :, 0:n] * s
+    un = q[:, :, n:2 * n] * s
+    vn = q[:, :, 2 * n:3 * n] * s
+    tn = q[:, :, 3 * n:4 * n] * s
+    valid = ((adet > C.DET_EPS) & (un >= 0.0) & (vn >= 0.0)
+             & (un + vn <= adet) & (tn > adet * C.T_MIN))
+    tc = torch.where(valid, tn / torch.clamp(adet, min=1e-30), 2.0 * C.T_FAR)
+    tmin, row = tc.min(dim=2)
+    better = (tmin < t_best) & enabled[:, None]
+    best.copy_(torch.where(better, (cid[:, None] * n + row).to(torch.int32),
+                           best))
+    t_best.copy_(torch.where(better, tmin, t_best))
 
 
 def _kernel():

@@ -51,8 +51,9 @@ class Geometry(_TensorFields):
     group triangles into 128-slot padded clusters with one box each;
     `cl_map` maps slots to triangle ids (-1 padding) and `cl_slot_nm` holds
     the pre-joined per-slot [n(3), mat, valid, pad(3)] rows of the winner
-    decode. The super-cluster and grid tables are filled by later slices
-    (empty here).
+    decode. The grid tables (accel/grid.py) map each morton cell of a
+    uniform grid to a contiguous cluster range; the super-cluster tables
+    are filled by a later slice (empty here).
     """
 
     tri_v0: torch.Tensor  # (T, 3) f32

@@ -178,11 +178,15 @@ def test_port_matches_golden(name):
 
 
 def test_unported_backends_raise(small_mesh):
+    """stream and the BVH walks are not ported and raise; the grid route
+    without grid tables raises ValueError naming prepare_accel."""
     _, scene = small_mesh
-    for backend in ("grid", "stream", "pallas", "jnp"):
+    for backend in ("stream", "pallas", "jnp"):
         cfg = RenderConfig(**{**SLICE, "backend": backend})
         with pytest.raises(NotImplementedError):
             render(scene, cfg)
+    with pytest.raises(ValueError, match="prepare_accel"):
+        render(scene, RenderConfig(**{**SLICE, "backend": "grid"}))
 
 
 def test_port_imports_no_jax():
@@ -194,6 +198,11 @@ def test_port_imports_no_jax():
         "from pathtracer_tpu_torch.accel.build import with_bvh\n"
         "cfg = pt.PRESETS['bench'].replace(width=8, height=8)\n"
         "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene)), cfg)\n"
+        "img = pt.render(scene, cfg)\n"
+        "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
+        "cfg = pt.PRESETS['config5'].replace(width=8, height=8)\n"
+        "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene, "
+        "n_target=3000), engine='native'), cfg)\n"
         "img = pt.render(scene, cfg)\n"
         "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
