@@ -2,16 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the two CUDA kernels (cluster and pair) and the native BVH builder
-from the repository's sources, all at once. Holds each kernel against its
-plain PyTorch version at its main path's shapes, renders the golden scenes
-through the cluster and the grid routes and compares them with
-``tests/golden``, then drives the two main paths at full size: the
-``bench`` preset (cornell_mesh, cluster route, K1) and ``config5``
-(big_mesh, 2M triangles, grid route, K2), each rendered and timed. Every
-phase either passes or raises; the last line of standard output is
-``{"ok": true, "device": {...}}`` only when all passed. There is no CPU
-path: without a CUDA device the script fails at once.
+Builds the four CUDA kernels (cluster, pair, stream and BVH walk) and the
+native BVH builder from the repository's sources, all at once. Holds each
+kernel against its plain PyTorch version at its main path's shapes, renders
+the golden scenes through the cluster, grid, BVH and stream routes and
+compares them with ``tests/golden``, then drives every path at full size:
+the ``bench`` preset (cornell_mesh, cluster route, K1) and the same scene
+through the BVH walk (K4); ``config2`` and ``config3`` (the BVH walk, K4);
+``config5`` (big_mesh, 2M triangles, grid route, K2) and the same scene
+through the BVH walk (K4) and through the stream route (K3), each rendered
+and timed. Every phase either passes or raises; the last line of standard
+output is ``{"ok": true, "device": {...}}`` only when all passed. There is
+no CPU path: without a CUDA device the script fails at once.
 """
 
 from __future__ import annotations
@@ -37,22 +39,31 @@ from pathtracer_tpu_torch.engine.camera import tiled_pixel_ids
 from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import intersect_cluster as ic
 from pathtracer_tpu_torch.ops import intersect_grid as ig
+from pathtracer_tpu_torch.ops import intersect_stream as st
+from pathtracer_tpu_torch.ops import traverse_bvh as tb
 from pathtracer_tpu_torch.scene import builder
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 KERNELS = {
-    # name: (CUDA source, the TPU kernel it replaces)
+    # name: (CUDA source, the TPU kernel it replaces, its wrapper's module)
     "cluster_hit": ("pathtracer_tpu_torch/ops/csrc/intersect_cluster.cu",
-                    "pathtracer_tpu/ops/intersect_cluster.py:211"),
+                    "pathtracer_tpu/ops/intersect_cluster.py:211", ic),
     "pair_hit": ("pathtracer_tpu_torch/ops/csrc/intersect_pair.cu",
-                 "pathtracer_tpu/ops/intersect_grid.py:279"),
+                 "pathtracer_tpu/ops/intersect_grid.py:279", ig),
+    "stream_hit": ("pathtracer_tpu_torch/ops/csrc/intersect_stream.cu",
+                   "pathtracer_tpu/ops/intersect_stream.py:76", st),
+    "bvh_hit": ("pathtracer_tpu_torch/ops/csrc/traverse_bvh.cu",
+                "pathtracer_tpu/ops/traverse_pallas.py:92", tb),
 }
 CHECK_PIXELS = 256 * 1024  # rays per query in the kernel-vs-plain phases
+BVH_CHECK_PIXELS_C5 = 64 * 1024  # K4 vs plain on the config-5 scene
 T_RTOL, T_ATOL = 4e-3, 2e-4  # the reference's cluster-vs-brute t bar
 MAT_AGREE = 0.999
 GRID_BAR = 2e-3  # the reference's grid-vs-jnp render bar: |d| <= a + a|ref|
 GRID_BAD_PIXELS = 0.002  # ... on all but this share of pixels
+STREAM_FRAME_LIMIT_S = 120.0  # the stream frame runs at 1024^2 within this
+STREAM_PROBE_SIDE = 512  # ... judged by a frame of this side first
 
 
 def check(cond: bool, what: str) -> None:
@@ -66,6 +77,22 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def reset_launches() -> None:
+    for _, _, module in KERNELS.values():
+        module.LAUNCHES = 0
+
+
+def launches() -> dict:
+    return {name: module.LAUNCHES for name, (_, _, module) in KERNELS.items()}
+
+
+def check_only(what: str, counts: dict, kernel: str) -> None:
+    """The path launched `kernel` and no other kernel."""
+    check(counts[kernel] > 0, f"{what} never launched {kernel}")
+    others = {k: n for k, n in counts.items() if k != kernel and n}
+    check(not others, f"{what} launched {others}")
 
 
 def bench_scene(cfg: RenderConfig, device):
@@ -91,15 +118,16 @@ def cuda_ms(fn, reps: int) -> float:
 def phase_build() -> None:
     """nvcc for each kernel source and g++ for the native BVH builder, all
     started together."""
+    sources = ("intersect_cluster", "intersect_pair", "intersect_stream",
+               "traverse_bvh")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(_build.load, "intersect_cluster"),
-                pool.submit(_build.load, "intersect_pair"),
-                pool.submit(native.load)]
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        jobs = [pool.submit(_build.load, name) for name in sources]
+        jobs.append(pool.submit(native.load))
         for job in jobs:
             job.result()
     print(f"[build] all sources: {time.perf_counter() - t0:.2f} s wall")
-    for name in ("intersect_cluster", "intersect_pair"):
+    for name in sources:
         rec = _build.BUILDS[name]
         print(f"[build] {name}.cu: nvcc {rec['seconds']:.2f} s")
         for line in rec["log"].splitlines():
@@ -107,6 +135,12 @@ def phase_build() -> None:
                 print(f"[build] ptxas: {line.strip()}")
     print(f"[build] native/bvh_builder.cpp: g++ "
           f"{native.BUILD['seconds']:.2f} s")
+
+
+def trace_bounce0(scene, cfg, pixel_ids) -> None:
+    wavefront.trace_sample(scene.geometry, scene.materials, scene.camera,
+                           scene.lights, cfg.replace(max_depth=1), pixel_ids,
+                           0)
 
 
 def record_main_path_queries(scene, cfg, pixel_ids):
@@ -121,17 +155,15 @@ def record_main_path_queries(scene, cfg, pixel_ids):
 
     ic.cluster_hit = recording
     try:
-        wavefront.trace_sample(scene.geometry, scene.materials, scene.camera,
-                               scene.lights, cfg.replace(max_depth=1),
-                               pixel_ids, 0)
+        trace_bounce0(scene, cfg, pixel_ids)
     finally:
         ic.cluster_hit = real
     return calls
 
 
-def compare_hits(name, t_k, s_k, t_p, s_p, slot_nm) -> float:
+def compare_hits(name, t_k, s_k, t_p, s_p, mats) -> float:
     """Kernel vs plain results: equal hit masks, t within the bar, materials
-    agreeing; returns the max abs t error over hits."""
+    (mats[slot]) agreeing; returns the max abs t error over hits."""
     hit_k, hit_p = s_k >= 0, s_p >= 0
     check(torch.equal(hit_k, hit_p), f"{name}: hit masks differ in "
           f"{int((hit_k != hit_p).sum())} entries")
@@ -139,16 +171,25 @@ def compare_hits(name, t_k, s_k, t_p, s_p, slot_nm) -> float:
                                atol=T_ATOL)
     if not hit_k.any():
         return 0.0
-    mat_k = slot_nm[s_k[hit_k].long(), 3]
-    mat_p = slot_nm[s_p[hit_p].long(), 3]
-    agree = (mat_k == mat_p).float().mean().item()
+    agree = (mats[s_k[hit_k].long()] == mats[s_p[hit_p].long()]).float() \
+        .mean().item()
     check(agree >= MAT_AGREE, f"{name}: material agreement {agree}")
     return (t_k[hit_k] - t_p[hit_p]).abs().max().item()
 
 
+def new_totals() -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+
+
+def add_totals(out, ms, plain_ms, err) -> None:
+    out["ms"] += ms
+    out["plain_ms"] += plain_ms
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+
+
 def phase_kernel_vs_plain(scene, cfg, device) -> dict:
     feat = scene.geometry.cl_feat
-    slot_nm = scene.geometry.cl_slot_nm
+    mats = scene.geometry.cl_slot_nm[:, 3]
     ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width,
                           device=device)[:CHECK_PIXELS]
     before = ic.LAUNCHES
@@ -156,7 +197,7 @@ def phase_kernel_vs_plain(scene, cfg, device) -> dict:
     check(len(queries) == 2, f"bounce 0 made {len(queries)} cluster "
           "queries, expected 2 (closest hit + shadow)")
     check(ic.LAUNCHES == before + 2, "main-path queries launched the kernel")
-    out = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    out = new_totals()
     for name, (cand, count, tnear, rayf) in zip(("closest", "shadow"),
                                                 queries):
         n0 = ic.LAUNCHES
@@ -164,7 +205,7 @@ def phase_kernel_vs_plain(scene, cfg, device) -> dict:
         torch.cuda.synchronize()
         check(ic.LAUNCHES == n0 + 1, "cluster_hit launched the kernel")
         t_p, s_p, v_p = ic.cluster_hit_plain(cand, count, tnear, rayf, feat)
-        err = compare_hits(name, t_k, s_k, t_p, s_p, slot_nm)
+        err = compare_hits(name, t_k, s_k, t_p, s_p, mats)
         ms = cuda_ms(lambda: ic.cluster_hit(cand, count, tnear, rayf, feat),
                      20)
         plain_ms = cuda_ms(
@@ -175,10 +216,58 @@ def phase_kernel_vs_plain(scene, cfg, device) -> dict:
               f"{v_p.float().mean().item():.2f}; hit masks equal, t max abs "
               f"err {err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out["ms"] += ms
-        out["plain_ms"] += plain_ms
-        out["max_abs_err"] = max(out["max_abs_err"], err)
+        add_totals(out, ms, plain_ms, err)
     return out
+
+
+def record_bvh_queries(scene, cfg, pixel_ids):
+    """The (o, d) the BVH route hands to bvh_hit for bounce 0: its
+    closest-hit query and its NEE shadow query."""
+    calls = []
+    real = tb.bvh_hit
+
+    def recording(nodes, tris, o, d, max_leaf=4):
+        calls.append((o, d))
+        return real(nodes, tris, o, d, max_leaf)
+
+    tb.bvh_hit = recording
+    try:
+        trace_bounce0(scene, cfg, pixel_ids)
+    finally:
+        tb.bvh_hit = real
+    return calls
+
+
+def phase_bvh_vs_plain(label, scene, cfg, n_pixels, device, out) -> None:
+    """K4 against its plain walk on the bounce-0 queries of `cfg` (a BVH
+    route) over the first n_pixels tile-ordered pixels."""
+    g = scene.geometry
+    ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width,
+                          device=device)[:n_pixels]
+    queries = record_bvh_queries(scene, cfg, ids)
+    check(len(queries) == 2, f"{label}: bounce 0 made {len(queries)} BVH "
+          "queries, expected 2 (closest hit + shadow)")
+    for name, (o, d) in zip(("closest", "shadow"), queries):
+        R = o.shape[0]
+        n0 = tb.LAUNCHES
+        t_k, s_k, v_k = tb.bvh_hit(g.bvh_nodes, g.bvh_tris, o, d)
+        torch.cuda.synchronize()
+        check(tb.LAUNCHES == n0 + 1, "bvh_hit launched the kernel")
+        t0 = time.perf_counter()
+        t_p, s_p, v_p = tb.bvh_hit_plain(g.bvh_nodes, g.bvh_tris, o, d,
+                                         chunk=R)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = compare_hits(f"{label} {name}", t_k, s_k, t_p, s_p, g.tri_mat)
+        ms = cuda_ms(lambda: tb.bvh_hit(g.bvh_nodes, g.bvh_tris, o, d), 20)
+        print(f"[kernel] bvh_hit {label} {name} query: {R} rays, "
+              f"{g.bvh_nodes.shape[0]} nodes, {int((s_k >= 0).sum())} hits, "
+              f"nodes visited per ray kernel {v_k.sum().item() / R:.2f} "
+              f"plain {v_p.sum().item() / R:.2f} (per-block visits equal "
+              f"{bool(torch.equal(v_k, v_p))}); hit masks equal, t max abs "
+              f"err {err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        add_totals(out, ms, plain_ms, err)
 
 
 def record_pair_queries(scene, cfg, pixel_ids):
@@ -198,9 +287,7 @@ def record_pair_queries(scene, cfg, pixel_ids):
 
     ig.pair_hit, ig.closest_hit_grid = recording_hit, recording_grid
     try:
-        wavefront.trace_sample(scene.geometry, scene.materials, scene.camera,
-                               scene.lights, cfg.replace(max_depth=1),
-                               pixel_ids, 0)
+        trace_bounce0(scene, cfg, pixel_ids)
     finally:
         ig.pair_hit, ig.closest_hit_grid = real_hit, real_grid
     return [calls[i] for i in firsts]
@@ -208,13 +295,13 @@ def record_pair_queries(scene, cfg, pixel_ids):
 
 def phase_pair_vs_plain(scene, cfg, device) -> dict:
     feat = scene.geometry.cl_feat
-    slot_nm = scene.geometry.cl_slot_nm
+    mats = scene.geometry.cl_slot_nm[:, 3]
     ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width,
                           device=device)[:CHECK_PIXELS]
     queries = record_pair_queries(scene, cfg, ids)
     check(len(queries) == 2, f"bounce 0 made {len(queries)} grid queries, "
           "expected 2 (closest hit + shadow)")
-    out = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    out = new_totals()
     for name, (offsets, cand, pair_ray, rayf, pb) in zip(
             ("closest", "shadow"), queries):
         args = (offsets, cand, pair_ray, rayf, feat, pb)
@@ -223,7 +310,7 @@ def phase_pair_vs_plain(scene, cfg, device) -> dict:
         torch.cuda.synchronize()
         check(ig.LAUNCHES == n0 + 1, "pair_hit launched the kernel")
         t_p, s_p, v_p = ig.pair_hit_plain(*args)
-        err = compare_hits(name, t_k, s_k, t_p, s_p, slot_nm)
+        err = compare_hits(name, t_k, s_k, t_p, s_p, mats)
         check(torch.equal(v_k, v_p), f"{name}: visits per block differ")
         ms = cuda_ms(lambda: ig.pair_hit(*args), 10)
         plain_ms = cuda_ms(lambda: ig.pair_hit_plain(*args), 1)
@@ -234,9 +321,78 @@ def phase_pair_vs_plain(scene, cfg, device) -> dict:
               f"max {int(v_k.max())}; hit masks equal, t max abs err "
               f"{err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out["ms"] += ms
-        out["plain_ms"] += plain_ms
-        out["max_abs_err"] = max(out["max_abs_err"], err)
+        add_totals(out, ms, plain_ms, err)
+    return out
+
+
+def record_stream_rounds(scene, cfg, pixel_ids, keep_inputs: bool):
+    """One trace_sample(with_stats=True); returns its useful rays and, per
+    closest_hit_stream call, the visits of each round and, with
+    keep_inputs, its stream_hit inputs (cand, count, tnear, rayf, t_in,
+    slot_in)."""
+    queries = []
+    real_hit, real_stream = st.stream_hit, st.closest_hit_stream
+
+    def recording_stream(*args, **kw):
+        queries.append({"rays": args[1].shape[0], "visits": [],
+                        "inputs": []})
+        return real_stream(*args, **kw)
+
+    def recording_hit(cand, count, tnear, rayf, t_in, slot_in, feat):
+        out = real_hit(cand, count, tnear, rayf, t_in, slot_in, feat)
+        queries[-1]["visits"].append(int(out[2].sum()))
+        if keep_inputs:
+            queries[-1]["inputs"].append((cand, count, tnear, rayf, t_in,
+                                          slot_in))
+        return out
+
+    st.stream_hit, st.closest_hit_stream = recording_hit, recording_stream
+    try:
+        _, n_rays = wavefront.trace_sample(
+            scene.geometry, scene.materials, scene.camera, scene.lights, cfg,
+            pixel_ids, 0, with_stats=True)
+    finally:
+        st.stream_hit, st.closest_hit_stream = real_hit, real_stream
+    return int(n_rays), queries
+
+
+def phase_stream_vs_plain(scene, cfg, device) -> dict:
+    """K3 against its plain version on every round of the stream route's
+    bounce-0 closest-hit and shadow queries."""
+    g = scene.geometry
+    mats = g.cl_slot_nm[:, 3]
+    ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width,
+                          device=device)[:CHECK_PIXELS]
+    _, queries = record_stream_rounds(scene, cfg.replace(max_depth=1), ids,
+                                      keep_inputs=True)
+    check(len(queries) == 2, f"bounce 0 made {len(queries)} stream "
+          "queries, expected 2 (closest hit + shadow)")
+    out = new_totals()
+    for name, q in zip(("closest", "shadow"), queries):
+        check(len(q["inputs"]) > 0, f"stream {name} query ran no round")
+        ms = plain_ms = err = 0.0
+        bit_equal = True
+        visits = []
+        for args in q["inputs"]:
+            n0 = st.LAUNCHES
+            t_k, s_k, v_k = st.stream_hit(*args, g.cl_feat)
+            torch.cuda.synchronize()
+            check(st.LAUNCHES == n0 + 1, "stream_hit launched the kernel")
+            t0 = time.perf_counter()
+            t_p, s_p, _ = st.stream_hit_plain(*args, g.cl_feat)
+            torch.cuda.synchronize()
+            plain_ms += (time.perf_counter() - t0) * 1e3
+            err = max(err, compare_hits(name, t_k, s_k, t_p, s_p, mats))
+            bit_equal = bit_equal and bool(torch.equal(t_k, t_p))
+            ms += cuda_ms(lambda: st.stream_hit(*args, g.cl_feat), 5)
+            visits.append(int(v_k.sum()))
+        B = q["inputs"][0][0].shape[0]
+        print(f"[kernel] stream_hit {name} query: {q['rays']} rays in {B} "
+              f"blocks, {len(q['inputs'])} rounds, visits per round "
+              f"{visits} (mean per block {sum(visits) / B:.2f}); hit masks "
+              f"equal, t max abs err {err:.3g}, t bit-equal {bit_equal}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (all rounds)")
+        add_totals(out, ms, plain_ms, err)
     return out
 
 
@@ -251,8 +407,10 @@ def check_golden(name, img, rtol, atol) -> float:
 
 def phase_goldens(device) -> None:
     """The golden scenes through the cluster route (the reference's
-    cluster-vs-jnp and engine-vs-oracle bars) and through the grid route at
-    axis 8 (the reference's grid-vs-jnp bar)."""
+    cluster-vs-jnp and engine-vs-oracle bars), through the grid route at
+    axis 8 (the reference's grid-vs-jnp bar), through the BVH walk that
+    rendered them (the reference's engine bar, every pixel) and through the
+    stream route (the cluster bar)."""
     mesh = builder.procedural_bunny(2)
     c3 = RenderConfig(width=32, height=32, spp=4, max_depth=4, rr_start=2,
                       scene="cornell_mesh", use_bvh=True, backend="cluster",
@@ -272,59 +430,68 @@ def phase_goldens(device) -> None:
          GRID_BAD_PIXELS),
         ("config2_48", builder.cornell_mesh(mesh_tris=mesh), c2, GRID_BAR,
          GRID_BAR, GRID_BAD_PIXELS),
+        ("config2_48", builder.cornell_mesh(mesh_tris=mesh),
+         c2.replace(backend="jnp"), 1e-3, 5e-4, 0.0),
+        ("config3_32", builder.cornell_mesh(mesh_tris=mesh),
+         c3.replace(backend="jnp", compact=False), 2e-3, 2e-3, 0.0),
+        ("config3_32", builder.cornell_mesh(mesh_tris=mesh),
+         c3.replace(backend="stream"), 2e-3, 2e-3, 1e-4),
     ]
     for name, scene, cfg, rtol, atol, allowed in cases:
         if cfg.use_bvh:
             scene = with_bvh(scene)
         scene = prepare_accel(scene, cfg, grid_axis=8).to(device)
-        n1, n2 = ic.LAUNCHES, ig.LAUNCHES
+        reset_launches()
         img = pt.render(scene, cfg).cpu().numpy()
-        print(f"[golden] {name} backend={cfg.backend}: "
-              f"{ic.LAUNCHES - n1} cluster_hit and {ig.LAUNCHES - n2} "
-              "pair_hit launches")
+        print(f"[golden] {name} backend={cfg.backend}: launches "
+              f"{launches()}")
         bad_px = check_golden(name, img, rtol, atol)
         check(bad_px <= allowed, f"{name}: {bad_px} of pixels outside the "
               "bar")
 
 
-def phase_main_path(device, card: str) -> int:
+def check_image(name, img, cfg) -> float:
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"{name}: image shape")
+    check(bool(torch.isfinite(img).all()), f"{name}: finite image")
+    check(bool((img >= 0).all()), f"{name}: non-negative image")
+    mean = img.mean().item()
+    check(mean > 0.0, f"{name}: image mean above 0")
+    return mean
+
+
+def frame_args(scene, cfg, device):
+    ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width, device=device)
+    return (scene.geometry, scene.materials, scene.camera, scene.lights, cfg,
+            ids, 0)
+
+
+def phase_main_path(scene, device, card: str) -> int:
     cfg = pt.PRESETS["bench"]
-    t0 = time.perf_counter()
-    scene = bench_scene(cfg, device)
-    print(f"[main] bench scene: {scene.geometry.tri_v0.shape[0]} triangles, "
-          f"{scene.geometry.cl_lo.shape[0]} clusters, host build "
-          f"{time.perf_counter() - t0:.2f} s")
-    ic.LAUNCHES = 0
-    ig.LAUNCHES = 0
+    reset_launches()
     img = pt.render(scene, cfg)
     torch.cuda.synchronize()
-    launches, pair_launches = ic.LAUNCHES, ig.LAUNCHES
-    check(tuple(img.shape) == (cfg.height, cfg.width, 3), "image shape")
-    check(bool(torch.isfinite(img).all()), "finite image")
-    check(bool((img >= 0).all()), "non-negative image")
-    mean = img.mean().item()
-    check(mean > 0.0, "image mean above 0")
-    check(launches == 2 * cfg.max_depth,
-          f"{launches} kernel launches, expected {2 * cfg.max_depth}")
-    check(pair_launches == 0, f"bench launched pair_hit {pair_launches} "
-          "times")
+    counts = launches()
+    mean = check_image("bench", img, cfg)
+    check_only("bench", counts, "cluster_hit")
+    check(counts["cluster_hit"] == 2 * cfg.max_depth,
+          f"{counts['cluster_hit']} kernel launches, expected "
+          f"{2 * cfg.max_depth}")
     print(f"[main] render(bench) {cfg.width}x{cfg.height} depth "
-          f"{cfg.max_depth}: mean {mean:.6f}, {launches} cluster_hit "
-          "launches, 0 pair_hit launches")
+          f"{cfg.max_depth}: mean {mean:.6f}, launches {counts}")
 
-    ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width, device=device)
-    args = (scene.geometry, scene.materials, scene.camera, scene.lights, cfg,
-            ids, 0)
-    time_frames("bench", args, 5, card)
-    return launches
+    time_frames("bench", frame_args(scene, cfg, device), 5, card)
+    return counts["cluster_hit"]
 
 
-def time_frames(name, args, n_frames, card) -> None:
+def time_frames(name, args, n_frames, card, kernel=None) -> None:
     """Median useful rays/s of n_frames trace_sample(with_stats=True) runs
-    after one warm-up, each bracketed by synchronize(); peak memory."""
+    (after one warm-up run), each bracketed by synchronize(); peak memory.
+    With `kernel`, the timed frames must have launched it and no other."""
     wavefront.trace_sample(*args, with_stats=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     rates, secs = [], []
     for _ in range(n_frames):
         torch.cuda.synchronize()
@@ -335,21 +502,58 @@ def time_frames(name, args, n_frames, card) -> None:
         dt = time.perf_counter() - t0
         secs.append(dt)
         rates.append(n / dt)
+    counts = launches()
+    if kernel is not None:
+        check_only(name, counts, kernel)
     print(f"[main] trace_sample({name}, tiled, with_stats): {n} useful "
           f"rays, frame s {[round(x, 6) for x in secs]}, median "
           f"{statistics.median(rates):.1f} useful rays/s, peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
-          f"on {card}")
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+          f"launches {counts} on {card}")
 
 
-def config5_scene(cfg, device):
-    """build_scene -> with_bvh -> prepare_accel -> the card, timed."""
-    t = [time.perf_counter()]
+def phase_bvh_presets(device, card: str) -> int:
+    """config2 and config3 as they stand, through the BVH walk (K4 only);
+    returns config3's K4 launches."""
+    for name in ("config2", "config3"):
+        cfg = pt.PRESETS[name]
+        t0 = time.perf_counter()
+        scene = bench_scene(cfg, device)
+        build_s = time.perf_counter() - t0
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pt.render(scene, cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launches()
+        mean = check_image(name, img, cfg)
+        check_only(name, counts, "bvh_hit")
+        print(f"[main] render({name}) {cfg.width}x{cfg.height} spp "
+              f"{cfg.spp} (chunks of {cfg.spp_chunk or cfg.spp}) depth "
+              f"{cfg.max_depth} backend={cfg.backend}: mean {mean:.6f}, "
+              f"launches {counts}, {seconds:.3f} s (host build "
+              f"{build_s:.2f} s)")
+    return counts["bvh_hit"]
+
+
+def config5_host_scene(cfg):
+    """big_mesh -> with_bvh on the host, timed."""
+    t0 = time.perf_counter()
     scene = builder.build_scene(cfg.scene)
-    t.append(time.perf_counter())
+    t1 = time.perf_counter()
     scene = with_bvh(scene)
-    t.append(time.perf_counter())
-    scene = prepare_accel(scene, cfg)
+    t2 = time.perf_counter()
+    print(f"[main] big_mesh: {scene.geometry.tri_v0.shape[0]} triangles, "
+          f"{scene.geometry.bvh_lo.shape[0]} BVH nodes; host build s: "
+          f"big_mesh {t1 - t0:.2f}, native BVH {t2 - t1:.2f}")
+    return scene
+
+
+def config5_scene(host, cfg, device):
+    """prepare_accel -> the card, timed."""
+    t = [time.perf_counter()]
+    scene = prepare_accel(host, cfg)
     t.append(time.perf_counter())
     scene = scene.to(device)
     torch.cuda.synchronize()
@@ -362,9 +566,8 @@ def config5_scene(cfg, device):
           f"{(cs[1:] > cs[:-1]).float().mean().item():.4f} of cells "
           f"occupied, max {int((cs[1:] - cs[:-1]).max())} clusters per "
           f"cell, feature table {g.cl_feat.numel() * 4 / 1e6:.1f} MB on the "
-          f"card; host build s: big_mesh {t[1] - t[0]:.2f}, native BVH "
-          f"{t[2] - t[1]:.2f}, grid tables {t[3] - t[2]:.2f}, to card "
-          f"{t[4] - t[3]:.2f}")
+          f"card; host build s: grid tables {t[1] - t[0]:.2f}, to card "
+          f"{t[2] - t[1]:.2f}")
     return scene
 
 
@@ -388,28 +591,19 @@ def grid_stats_frame(args):
 
 def phase_config5(scene, device, card: str) -> int:
     cfg = pt.PRESETS["config5"]
-    ic.LAUNCHES = 0
-    ig.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     img = pt.render(scene, cfg)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, cluster_launches = ig.LAUNCHES, ic.LAUNCHES
-    check(tuple(img.shape) == (cfg.height, cfg.width, 3), "image shape")
-    check(bool(torch.isfinite(img).all()), "finite image")
-    check(bool((img >= 0).all()), "non-negative image")
-    mean = img.mean().item()
-    check(mean > 0.0, "image mean above 0")
-    check(launches > 0, "config5 never launched pair_hit")
-    check(cluster_launches == 0, f"config5 launched cluster_hit "
-          f"{cluster_launches} times")
+    counts = launches()
+    mean = check_image("config5", img, cfg)
+    check_only("config5", counts, "pair_hit")
     print(f"[main] render(config5) {cfg.width}x{cfg.height} depth "
-          f"{cfg.max_depth}: mean {mean:.6f}, {launches} pair_hit launches, "
-          f"0 cluster_hit launches, {seconds:.3f} s (first frame)")
+          f"{cfg.max_depth}: mean {mean:.6f}, launches {counts}, "
+          f"{seconds:.3f} s (first frame)")
 
-    ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width, device=device)
-    args = (scene.geometry, scene.materials, scene.camera, scene.lights, cfg,
-            ids, 0)
+    args = frame_args(scene, cfg, device)
     for i, (n_rays, first, info) in enumerate(grid_stats_frame(args)):
         print(f"[main] config5 query {i} (bounce {i // 2}, "
               f"{('closest', 'shadow')[i % 2]}, first_steps {first}): "
@@ -417,13 +611,77 @@ def phase_config5(scene, device, card: str) -> int:
               f"the eras, {info['eras']} eras of <= {info['era_rays']} rays, "
               f"{info['visits']} pair-kernel visits")
     time_frames("config5", args, 3, card)
-    return launches
+    return counts["pair_hit"]
 
 
-def kernel_entry(name, launches, k) -> dict:
-    source, replaces = KERNELS[name]
+def stream_scene(host, cfg, device):
+    t0 = time.perf_counter()
+    scene = prepare_accel(host, cfg)
+    t1 = time.perf_counter()
+    scene = scene.to(device)
+    torch.cuda.synchronize()
+    g = scene.geometry
+    print(f"[main] config5 stream scene: {g.cl_lo.shape[0]} clusters, "
+          f"{g.su_lo.shape[0]} supers, feature table "
+          f"{g.cl_feat.numel() * 4 / 1e6:.1f} MB on the card; host build s: "
+          f"cluster tables {t1 - t0:.2f}, to card "
+          f"{time.perf_counter() - t1:.2f}")
+    return scene
+
+
+def phase_stream(scene, device, card: str) -> int:
+    """The stream route at the full scene size: render a frame of side
+    STREAM_PROBE_SIDE, then time one frame at the preset's 1024x1024 when
+    four times the first frame's seconds fit STREAM_FRAME_LIMIT_S (else at
+    the smaller side), with its launches, rounds and visits per query and
+    peak memory; returns that frame's K3 launches."""
+    cfg = pt.PRESETS["config5"].replace(backend="stream")
+    small = cfg.replace(width=STREAM_PROBE_SIDE, height=STREAM_PROBE_SIDE)
+    reset_launches()
+    t0 = time.perf_counter()
+    img = pt.render(scene, small)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    mean = check_image("config5 stream", img, small)
+    check_only("config5 stream render", counts, "stream_hit")
+    print(f"[main] render(config5, backend=stream) {small.width}x"
+          f"{small.height} depth "
+          f"{small.max_depth}: mean {mean:.6f}, launches {counts}, "
+          f"{seconds:.3f} s")
+    if 4.0 * seconds > STREAM_FRAME_LIMIT_S:
+        print(f"[main] config5 stream frame stays at {small.width}x"
+              f"{small.height}: {cfg.width}x{cfg.height} would take about "
+              f"{4 * seconds:.1f} s > {STREAM_FRAME_LIMIT_S} s")
+        cfg = small
+    args = frame_args(scene, cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    n_rays, queries = record_stream_rounds(scene, cfg, args[5],
+                                           keep_inputs=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    check_only("config5 stream frame", counts, "stream_hit")
+    for i, q in enumerate(queries):
+        print(f"[main] config5 stream query {i} (bounce {i // 2}, "
+              f"{('closest', 'shadow')[i % 2]}): {q['rays']} rays, "
+              f"{len(q['visits'])} rounds, {sum(q['visits'])} K3 cluster "
+              f"visits (per round {q['visits']})")
+    print(f"[main] trace_sample(config5 backend=stream {cfg.width}x"
+          f"{cfg.height}, tiled, with_stats): {n_rays} useful rays, frame s "
+          f"{seconds:.6f}, {n_rays / seconds:.1f} useful rays/s, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB, launches {counts} on {card}")
+    return counts["stream_hit"]
+
+
+def kernel_entry(name, n_launches, k) -> dict:
+    source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": n_launches,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"]}
 
@@ -441,16 +699,48 @@ def main() -> int:
           f"{torch.version.cuda}")
     phase_build()
     with torch.inference_mode():
-        k1 = phase_kernel_vs_plain(bench_scene(pt.PRESETS["bench"], device),
-                                   pt.PRESETS["bench"], device)
+        t0 = time.perf_counter()
+        bench = bench_scene(pt.PRESETS["bench"], device)
+        print(f"[main] bench scene: {bench.geometry.tri_v0.shape[0]} "
+              f"triangles, {bench.geometry.cl_lo.shape[0]} clusters, "
+              f"{bench.geometry.bvh_lo.shape[0]} BVH nodes, host build "
+              f"{time.perf_counter() - t0:.2f} s")
+        k1 = phase_kernel_vs_plain(bench, pt.PRESETS["bench"], device)
+        k4 = new_totals()
+        c3 = pt.PRESETS["config3"]
+        phase_bvh_vs_plain("config3", bench_scene(c3, device), c3,
+                           c3.n_pixels, device, k4)
         phase_goldens(device)
-        k1_launches = phase_main_path(device, card)
-        scene = config5_scene(pt.PRESETS["config5"], device)
-        k2 = phase_pair_vs_plain(scene, pt.PRESETS["config5"], device)
+        k1_launches = phase_main_path(bench, device, card)
+        bench_k4 = pt.PRESETS["bench"].replace(backend="jnp")
+        time_frames("bench backend=jnp", frame_args(bench, bench_k4, device),
+                    5, card, "bvh_hit")
+        del bench
+        k4_launches = phase_bvh_presets(device, card)
+
+        c5 = pt.PRESETS["config5"]
+        host = config5_host_scene(c5)
+        scene = config5_scene(host, c5, device)
+        k2 = phase_pair_vs_plain(scene, c5, device)
         k2_launches = phase_config5(scene, device, card)
+        c5_k4 = c5.replace(backend="jnp")
+        phase_bvh_vs_plain("config5", scene, c5_k4, BVH_CHECK_PIXELS_C5,
+                           device, k4)
+        time_frames("config5 backend=jnp", frame_args(scene, c5_k4, device),
+                    3, card, "bvh_hit")
+        del scene
+        torch.cuda.empty_cache()
+
+        c5_stream = c5.replace(backend="stream")
+        scene = stream_scene(host, c5_stream, device)
+        del host
+        k3 = phase_stream_vs_plain(scene, c5_stream, device)
+        k3_launches = phase_stream(scene, device, card)
     print(json.dumps({"kernels": [
         kernel_entry("cluster_hit", k1_launches, k1),
         kernel_entry("pair_hit", k2_launches, k2),
+        kernel_entry("stream_hit", k3_launches, k3),
+        kernel_entry("bvh_hit", k4_launches, k4),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

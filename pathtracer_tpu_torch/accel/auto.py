@@ -5,7 +5,7 @@ reference's routing: a scene whose cluster table is above the cluster
 route's bound (ops/intersect_cluster.py:routes_to_cluster, the reference's
 bound, kept so the same scenes take the same route in both packages) gets
 grid tables instead, and engine/wavefront.py:_intersector sends it to the
-grid intersector. backend="stream" is not ported yet and raises.
+grid intersector.
 """
 
 from __future__ import annotations
@@ -23,13 +23,13 @@ def prepare_accel(scene: Scene, cfg: RenderConfig,
 
     backend="cluster": dense cluster tables when they are within the cluster
         route's bound, else grid tables.
+    backend="stream": cluster and super-cluster tables, at any size (the
+        explicit choice of the stream route).
     backend="grid": uniform-grid tables (`grid_axis` overrides pick_axis).
     backend="jnp"/"pallas": nothing beyond the BVH built upstream.
-    backend="stream" raises NotImplementedError.
     """
     if cfg.backend == "stream":
-        raise NotImplementedError('backend="stream" is not ported yet '
-                                  "(ROADMAP.md queue 1)")
+        return with_clusters(scene)
     if cfg.backend == "grid":
         return with_grid(scene, axis=grid_axis)
     if cfg.backend != "cluster":

@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 
+from ..ops.traverse_bvh import pack_tables
 from ..scene.model import Scene
 
 
@@ -103,7 +104,8 @@ def with_bvh(scene: Scene, max_leaf: int = 4, engine: str = "auto") -> Scene:
     native above). Unlike the reference, "auto" never falls back to numpy
     when the native library cannot be built: it raises, since the fallback
     gives another triangle order. Light triangle indices are remapped
-    through the permutation.
+    through the permutation, and the BVH is also packed for the CUDA walk
+    (ops/traverse_bvh.py:pack_tables).
     """
     if engine not in ("auto", "numpy", "native"):
         raise ValueError(f"unknown BVH engine {engine!r}")
@@ -122,10 +124,13 @@ def with_bvh(scene: Scene, max_leaf: int = 4, engine: str = "auto") -> Scene:
     perm = bvh.order  # new position i holds old triangle perm[i]
     inv = np.empty_like(perm)
     inv[perm] = np.arange(len(perm), dtype=np.int32)
+    v0, e1, e2 = v0[perm], e1[perm], e2[perm]
+    nodes, tris = pack_tables(bvh.lo, bvh.hi, bvh.first, bvh.count, bvh.skip,
+                              v0, e1, e2)
     g2 = g.replace(
-        tri_v0=v0[perm],
-        tri_e1=e1[perm],
-        tri_e2=e2[perm],
+        tri_v0=v0,
+        tri_e1=e1,
+        tri_e2=e2,
         tri_n=g.tri_n.cpu().numpy()[perm],
         tri_mat=g.tri_mat.cpu().numpy()[perm],
         bvh_lo=bvh.lo,
@@ -133,6 +138,8 @@ def with_bvh(scene: Scene, max_leaf: int = 4, engine: str = "auto") -> Scene:
         bvh_first=bvh.first,
         bvh_count=bvh.count,
         bvh_skip=bvh.skip,
+        bvh_nodes=nodes,
+        bvh_tris=tris,
     )
     tri_idx = inv[scene.lights.tri_idx.cpu().numpy()].astype(np.int32)
     return scene.replace(geometry=g2,

@@ -28,13 +28,14 @@ class RenderConfig:
       scene: name of a builtin scene preset (see scene/builder.py).
       spp_chunk: samples accumulated per step; 0 means all spp in one pass.
       use_bvh: build the flat BVH (its triangle order and root box are used
-        by every backend; the BVH walk itself is not ported yet).
+        by every backend; "jnp" and "pallas" walk it).
       backend: "cluster" (the hand-written CUDA cluster intersector,
         ops/intersect_cluster.py; scenes above its bound go to the grid),
         "grid" (per-ray DDA over a uniform grid with the CUDA pair kernel,
-        ops/intersect_grid.py) or "jnp" (brute force when use_bvh is off).
-        "stream" and "pallas", and the BVH walk behind "jnp", raise
-        NotImplementedError until their slices are ported.
+        ops/intersect_grid.py), "stream" (the cluster walk in K-candidate
+        rounds with the CUDA stream kernel, ops/intersect_stream.py), or
+        "jnp" and "pallas" (both the BVH walk with the CUDA BVH kernel,
+        ops/traverse_bvh.py; brute force when use_bvh is off).
       compact: stream-compact (coherence-sort) the ray buffer between
         bounces.
       mis: multiple importance sampling (power heuristic) between NEE and

@@ -19,6 +19,7 @@ No gradient is taken in this slice: trace_sample runs under
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 
@@ -40,9 +41,14 @@ from .shading import (
 )
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               "queue 1)")
+def _stream_hit():
+    from ..ops.intersect_stream import closest_hit_stream
+
+    def hit(g, o, d, t_max=None, sparse_hint=False):
+        return closest_hit_stream(g, o, d, t_max=t_max)
+
+    hit.impl = "stream"
+    return hit
 
 
 def _grid_hit():
@@ -65,15 +71,19 @@ def _intersector(geom, cfg: RenderConfig):
     sparse_hint=False); `hit.impl` names it. t_max is the shadow bound
     (hits at t >= t_max may read as misses); sparse_hint marks calls where
     most lanes are dead, which only the grid route reads. Routes:
-    "grid" with grid tables takes ops/intersect_grid.py; "cluster" takes
+    "grid" with grid tables takes ops/intersect_grid.py; "stream" with
+    cluster tables takes ops/intersect_stream.py; "cluster" takes
     ops/intersect_cluster.py when its table is within the cluster route's
-    bound, else the grid when the scene has grid tables (the
-    accel/auto.py route). Scenes without a BVH (or use_bvh off) take brute
-    force. Unlike the reference, nothing falls through with a warning:
-    "grid" without grid tables and a cluster table above the bound without
-    them raise, as do the stream and BVH-walk routes, not ported yet.
+    bound, else the grid when the scene has grid tables (the accel/auto.py
+    route), else the stream route with a warning, as in the reference.
+    Otherwise, with use_bvh and a BVH, "jnp" and "pallas" (and a backend
+    whose tables are missing) take the BVH walk of ops/traverse_bvh.py,
+    which ignores t_max as the reference's walks do; without a BVH, brute
+    force. Unlike the reference, "grid" without grid tables and "stream"
+    without cluster tables raise instead of falling through.
     """
     has_grid = geom.gr_cell_start.shape[0] > 1
+    has_clusters = geom.cl_lo.shape[0] > 0
     if cfg.backend == "grid":
         if not has_grid:
             raise ValueError('backend="grid" needs grid tables: build the '
@@ -81,8 +91,12 @@ def _intersector(geom, cfg: RenderConfig):
                              "accel.grid.with_grid)")
         return _grid_hit()
     if cfg.backend == "stream":
-        raise _not_ported('backend="stream"')
-    if cfg.backend == "cluster" and geom.cl_lo.shape[0] > 0:
+        if not has_clusters:
+            raise ValueError('backend="stream" needs cluster tables: build '
+                             "the scene with accel.auto.prepare_accel (or "
+                             "accel.clusters.with_clusters)")
+        return _stream_hit()
+    if cfg.backend == "cluster" and has_clusters:
         from ..ops.intersect_cluster import (
             closest_hit_cluster,
             routes_to_cluster,
@@ -91,9 +105,15 @@ def _intersector(geom, cfg: RenderConfig):
         if not routes_to_cluster(int(geom.cl_lo.shape[0])):
             if has_grid:
                 return _grid_hit()
-            raise _not_ported(
-                "a cluster table above the cluster route's bound without "
-                "grid tables needs the stream route, which")
+            warnings.warn(
+                "the cluster table is above the cluster route's bound and "
+                "no grid tables are present; falling back to the stream "
+                "route (much slower than the grid on large scenes). Build "
+                "the scene with accel.auto.prepare_accel (or "
+                "accel.grid.with_grid) to get the grid route.",
+                stacklevel=2,
+            )
+            return _stream_hit()
 
         def hit(g, o, d, t_max=None, sparse_hint=False):
             return closest_hit_cluster(g, o, d, t_max=t_max)
@@ -101,7 +121,13 @@ def _intersector(geom, cfg: RenderConfig):
         hit.impl = "cluster"
         return hit
     if cfg.use_bvh and geom.bvh_lo.shape[0] > 0:
-        raise _not_ported(f'the BVH walk (backend="{cfg.backend}")')
+        from ..ops.traverse_bvh import closest_hit_bvh
+
+        def hit(g, o, d, t_max=None, sparse_hint=False):
+            return closest_hit_bvh(g, o, d)
+
+        hit.impl = "pallas" if cfg.backend == "pallas" else "bvh"
+        return hit
 
     def hit(g, o, d, t_max=None, sparse_hint=False):
         return isect.brute(g, o, d)

@@ -5,8 +5,9 @@
 // (the Pallas kernel _cluster_kernel). It computes what that kernel
 // computes, not block for block: one CTA walks the near-first candidate
 // clusters of one 512-ray block, one thread per ray, with the ordered early
-// exit; each visit tests all 128 triangles of a cluster (visit.cuh, shared
-// with the pair kernel). The TPU kernel's bf16 hi/lo matmul and its 127-ulp
+// exit; each visit tests all 128 triangles of a cluster (visit.cuh: the
+// walk is shared with the stream kernel, the visit also with the pair
+// kernel). The TPU kernel's bf16 hi/lo matmul and its 127-ulp
 // encoded min were there to fit the MXU; this kernel takes the exact f32
 // min, rounded so that it equals the plain PyTorch version,
 // cluster_hit_plain, bit for bit: that is what lets a check demand equal
@@ -58,19 +59,9 @@ cluster_hit_kernel(const int* __restrict__ cand,
       static_cast<long long>(n_clusters) * visit::kClusterCols;
   const long long cand_row = static_cast<long long>(b) * n_cand_max;
   const int n_cand = min(count[b], n_cand_max);
-
-  int k = 0;
-  for (; k < n_cand; ++k) {
-    // Ordered early exit: candidates are sorted by a lower bound of their
-    // entry distance, so once no ray's best hit lies beyond it, no later
-    // cluster can improve any ray. The vote is also the barrier that keeps
-    // the previous visit's readers ahead of the next stage.
-    if (__syncthreads_and(t_best <= tnear[cand_row + k])) break;
-    const int cid = min(max(cand[cand_row + k], 0), n_clusters - 1);
-    visit::stage_cluster(tri, feat, feat_row, cid, tid, kRayBlock);
-    __syncthreads();
-    visit::visit_cluster(tri, r, cid, t_best, best);
-  }
+  const int k = visit::walk_ordered(tri, cand + cand_row, tnear + cand_row,
+                                    n_cand, feat, feat_row, n_clusters, r,
+                                    t_best, best, tid, kRayBlock);
   t_out[ray] = t_best;
   slot_out[ray] = best;
   if (tid == 0) visits_out[b] = k;

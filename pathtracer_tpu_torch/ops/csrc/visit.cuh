@@ -1,6 +1,9 @@
-// One cluster visit, shared by the cluster kernel (intersect_cluster.cu) and
-// the pair kernel (intersect_pair.cu): stage a cluster's feature columns in
-// shared memory, then test its 128 triangles against one ray.
+// One cluster visit, shared by the cluster kernel (intersect_cluster.cu), the
+// stream kernel (intersect_stream.cu) and the pair kernel
+// (intersect_pair.cu): stage a cluster's feature columns in shared memory,
+// then test its 128 triangles against one ray; and the ordered walk of a
+// block's near-first candidate list that the cluster and stream kernels
+// share.
 //
 // Per (ray, triangle) the feature algebra of accel/clusters.py gives det,
 // u*det, v*det and t*det as dot products of the ray's 10 feature rows with
@@ -89,6 +92,28 @@ __device__ __forceinline__ void visit_cluster(const float* tri,
       }
     }
   }
+}
+
+// Walks a block's first n_cand candidates (cand/tnear: the block's row,
+// sorted by a lower bound of the entry distance) with the ordered early
+// exit: once no ray's best hit lies beyond the next entry bound, no later
+// cluster can improve any ray. The vote is also the barrier that keeps the
+// previous visit's readers ahead of the next stage. Every thread of the
+// block calls it with the same n_cand; returns the clusters visited.
+__device__ __forceinline__ int walk_ordered(
+    float* tri, const int* __restrict__ cand, const float* __restrict__ tnear,
+    int n_cand, const float* __restrict__ feat, long long feat_row,
+    int n_clusters, const float (&r)[kFeatUsed], float& t_best, int& best,
+    int tid, int n_threads) {
+  int k = 0;
+  for (; k < n_cand; ++k) {
+    if (__syncthreads_and(t_best <= tnear[k])) break;
+    const int cid = min(max(cand[k], 0), n_clusters - 1);
+    stage_cluster(tri, feat, feat_row, cid, tid, n_threads);
+    __syncthreads();
+    visit_cluster(tri, r, cid, t_best, best);
+  }
+  return k;
 }
 
 }  // namespace visit

@@ -159,20 +159,33 @@ def ray_cluster_mask(cl_lo, cl_hi, o, d, t_max):
     return crossed.reshape(R // RAY_BLOCK, RAY_BLOCK, n).any(dim=1)
 
 
-def ray_super_mask(su_lo, su_hi, cl_super, o, d, t_max):
+def ray_super_mask(su_lo, su_hi, cl_super, o, d, t_max,
+                   chunk_blocks: int = 64):
     """(B, C) per-ray line cull at super-cluster granularity: cluster c
     survives for block b iff some ray of b crosses super(c) within its own
-    [T_MIN, t_max]."""
+    [T_MIN, t_max].
+
+    Works `chunk_blocks` whole ray blocks at a time, so its (rays, S, 3)
+    intermediates stay near 200 MB at ~500 supers (a 1M-ray query in one
+    piece would hold ~6 GB each); every ray's test is its own, so the
+    result does not depend on the chunking.
+    """
     R = o.shape[0]
     inv = _safe_inverse(d)
-    t0 = (su_lo[None, :, :] - o[:, None, :]) * inv[:, None, :]  # (R, S, 3)
-    t1 = (su_hi[None, :, :] - o[:, None, :]) * inv[:, None, :]
-    t_in = torch.minimum(t0, t1).max(dim=-1).values
-    t_out = torch.maximum(t0, t1).min(dim=-1).values
-    crossed = (t_out >= torch.clamp(t_in, min=C.T_MIN)) \
-        & (t_in <= t_max[:, None])
-    block_super = crossed.reshape(R // RAY_BLOCK, RAY_BLOCK, -1).any(dim=1)
-    return block_super[:, cl_super.to(torch.int64)]
+    step = chunk_blocks * RAY_BLOCK
+    parts = [torch.zeros((0, su_lo.shape[0]), dtype=torch.bool,
+                         device=o.device)]
+    for r0 in range(0, R, step):
+        o_c, i_c = o[r0:r0 + step, None, :], inv[r0:r0 + step, None, :]
+        t0 = (su_lo[None, :, :] - o_c) * i_c  # (rays, S, 3)
+        t1 = (su_hi[None, :, :] - o_c) * i_c
+        t_in = torch.minimum(t0, t1).max(dim=-1).values
+        t_out = torch.maximum(t0, t1).min(dim=-1).values
+        crossed = (t_out >= torch.clamp(t_in, min=C.T_MIN)) \
+            & (t_in <= t_max[r0:r0 + step, None])
+        parts.append(crossed.reshape(-1, RAY_BLOCK, crossed.shape[1])
+                     .any(dim=1))
+    return torch.cat(parts)[:, cl_super.to(torch.int64)]
 
 
 def cull_candidates(cl_lo, cl_hi, o, d, t_max=None, extra_mask=None):
@@ -256,25 +269,39 @@ def cluster_hit_plain(cand, count, tnear, rayf, feat,
     card both give the same bits.
     """
     _check_hit_inputs(cand, count, tnear, rayf, feat)
+    t_best = rayf[_FEAT_USED].clone()
+    best = torch.full_like(t_best, -1, dtype=torch.int32)
+    visits = walk_candidates_plain(cand, count, rayf, feat, t_best, best,
+                                   chunk_blocks)
+    return t_best, best, visits
+
+
+def walk_candidates_plain(cand, count, rayf, feat, t_best, best,
+                          chunk_blocks: int = 256) -> torch.Tensor:
+    """Every valid candidate of every block, in order, with no early exit:
+    updates the (R,) t_best (f32) and best (i32) in place and returns the
+    (B,) i32 clusters tested per block (count clamped to K). Only blocks
+    with candidates are computed, `chunk_blocks` at a time."""
     B, K = cand.shape
-    dev = rayf.device
-    n_cand = torch.clamp(count, max=K).to(torch.int64)
+    n_cand = torch.clamp(count, min=0, max=K).to(torch.int64)
     rays = rayf[:_FEAT_USED].T.reshape(B, RAY_BLOCK, _FEAT_USED)
-    t_best = rayf[_FEAT_USED].reshape(B, RAY_BLOCK).clone()
-    best = torch.full((B, RAY_BLOCK), -1, dtype=torch.int32, device=dev)
+    t_blk = t_best.view(B, RAY_BLOCK)
+    best_blk = best.view(B, RAY_BLOCK)
     n_clusters = feat.shape[1] // CLUSTER_COLS
     feat_c = cluster_major(feat)
-    for b0 in range(0, B, chunk_blocks):
-        b1 = min(B, b0 + chunk_blocks)
-        r = rays[b0:b1]
-        nc = n_cand[b0:b1]
-        tb = t_best[b0:b1]
-        bs = best[b0:b1]
+    busy = torch.nonzero(n_cand > 0).flatten()
+    for c0 in range(0, busy.shape[0], chunk_blocks):
+        ib = busy[c0:c0 + chunk_blocks]
+        r = rays[ib]
+        nc = n_cand[ib]
+        tb = t_blk[ib]
+        bs = best_blk[ib]
         for k in range(int(nc.max())):
-            cid = torch.clamp(cand[b0:b1, k].to(torch.int64), 0,
-                              n_clusters - 1)
+            cid = torch.clamp(cand[ib, k].to(torch.int64), 0, n_clusters - 1)
             visit_plain(r, feat_c[cid], cid, k < nc, tb, bs)
-    return t_best.reshape(-1), best.reshape(-1), n_cand.to(torch.int32)
+        t_blk[ib] = tb
+        best_blk[ib] = bs
+    return n_cand.to(torch.int32)
 
 
 def cluster_major(feat: torch.Tensor) -> torch.Tensor:

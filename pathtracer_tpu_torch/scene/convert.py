@@ -10,6 +10,8 @@ The reference stores its cluster feature table as a bf16 ``[hi; hi; lo]``
 stack (48 rows). The port keeps the float32 table it was rounded from: it
 is rebuilt here from the carried triangles and ``cl_map``, and its bf16
 stack must equal the carried table bit for bit, or the conversion raises.
+The port's own packed BVH tables (``bvh_nodes``, ``bvh_tris``) are derived
+from the carried BVH and triangle arrays.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..accel.clusters import CLUSTER_TRIS, cluster_tables, stack_feat_bf16
+from ..ops.traverse_bvh import pack_tables
 from .model import Camera, Geometry, Lights, Materials, Scene, _tensors
 
 
@@ -59,6 +62,9 @@ def scene_from_arrays(geometry: dict, materials: dict, camera: dict,
     docstring); raises if the carried feature table does not match."""
     geometry = dict(geometry)
     geometry["cl_feat"] = _feat_from_carried(geometry)
+    geometry["bvh_nodes"], geometry["bvh_tris"] = pack_tables(
+        *(geometry[k] for k in ("bvh_lo", "bvh_hi", "bvh_first", "bvh_count",
+                                "bvh_skip", "tri_v0", "tri_e1", "tri_e2")))
     scene = Scene(
         geometry=_part(Geometry, geometry),
         materials=_part(Materials, materials),

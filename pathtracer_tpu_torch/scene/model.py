@@ -1,10 +1,13 @@
 """Scene data model: frozen dataclasses of tensors.
 
 Field for field the reference's ``scene/model.py`` (same names, shapes and
-order), with one difference: ``Geometry.cl_feat`` is the float32
+order), with two differences: ``Geometry.cl_feat`` is the float32
 ``(16, C*512)`` feature table, not the reference's bf16 ``[hi; hi; lo]``
 stack, which existed only to fit the TPU's matrix unit
-(accel/clusters.py:stack_feat_bf16 rebuilds it for comparisons).
+(accel/clusters.py:stack_feat_bf16 rebuilds it for comparisons); and
+``Geometry`` ends with two fields of its own, ``bvh_nodes`` and
+``bvh_tris``, the BVH packed for the CUDA walk (ops/traverse_bvh.py),
+derived from the BVH and triangle arrays.
 
 Builders work in numpy and wrap the result once with :func:`_tensors`; every
 dataclass has a ``.to(device)`` that moves all of its tensors.
@@ -53,7 +56,9 @@ class Geometry(_TensorFields):
     the pre-joined per-slot [n(3), mat, valid, pad(3)] rows of the winner
     decode. The grid tables (accel/grid.py) map each morton cell of a
     uniform grid to a contiguous cluster range; the super-cluster tables
-    are filled by a later slice (empty here).
+    (accel/clusters.py:build_supers) group clusters for the stream route's
+    per-ray cull. `bvh_nodes`/`bvh_tris` hold the BVH and its triangles as
+    ops/traverse_bvh.py:pack_tables lays them out (empty without a BVH).
     """
 
     tri_v0: torch.Tensor  # (T, 3) f32
@@ -82,6 +87,8 @@ class Geometry(_TensorFields):
     gr_lo: torch.Tensor  # (3,) f32 grid box min
     gr_cell: torch.Tensor  # (3,) f32 per-axis cell size
     cl_slot_nm: torch.Tensor  # (C*128, 8) f32
+    bvh_nodes: torch.Tensor  # (N, 8) f32 packed nodes
+    bvh_tris: torch.Tensor  # (T, 12) f32 packed triangles (0 rows: no BVH)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +192,8 @@ def make_geometry(
         gr_lo=np.zeros((3,), np.float32),
         gr_cell=np.ones((3,), np.float32),
         cl_slot_nm=np.zeros((0, 8), np.float32),
+        bvh_nodes=np.zeros((0, 8), np.float32),
+        bvh_tris=np.zeros((0, 12), np.float32),
     )))
 
 

@@ -177,16 +177,37 @@ def test_port_matches_golden(name):
     np.testing.assert_allclose(img, golden, rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("backend,use_bvh,impl", [
+    ("cluster", True, "cluster"), ("grid", True, "grid"),
+    ("stream", True, "stream"), ("jnp", True, "bvh"),
+    ("pallas", True, "pallas"), ("jnp", False, "brute"),
+])
+def test_backend_routes(backend, use_bvh, impl):
+    """Every backend name, on a scene prepared for it, routes to its
+    intersector and renders."""
+    cfg = RenderConfig(**{**SLICE, "width": 8, "height": 8,
+                          "backend": backend, "use_bvh": use_bvh})
+    scene = builder.cornell_mesh(mesh_tris=builder.procedural_bunny(2))
+    if use_bvh:
+        scene = with_bvh(scene)
+    scene = prepare_accel(scene, cfg)
+    assert wavefront._intersector(scene.geometry, cfg).impl == impl
+    img = render(scene, cfg)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+
+
 def test_unported_backends_raise(small_mesh):
-    """stream and the BVH walks are not ported and raise; the grid route
-    without grid tables raises ValueError naming prepare_accel."""
+    """A backend whose tables were not built raises ValueError naming
+    prepare_accel: the grid route without grid tables and the stream route
+    without cluster tables (every backend is ported; test_backend_routes
+    renders each one)."""
     _, scene = small_mesh
-    for backend in ("stream", "pallas", "jnp"):
-        cfg = RenderConfig(**{**SLICE, "backend": backend})
-        with pytest.raises(NotImplementedError):
-            render(scene, cfg)
     with pytest.raises(ValueError, match="prepare_accel"):
         render(scene, RenderConfig(**{**SLICE, "backend": "grid"}))
+    bvh_only = with_bvh(builder.cornell_mesh(
+        mesh_tris=builder.procedural_bunny(2)))
+    with pytest.raises(ValueError, match="prepare_accel"):
+        render(bvh_only, RenderConfig(**{**SLICE, "backend": "stream"}))
 
 
 def test_port_imports_no_jax():
@@ -203,6 +224,15 @@ def test_port_imports_no_jax():
         "cfg = pt.PRESETS['config5'].replace(width=8, height=8)\n"
         "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene, "
         "n_target=3000), engine='native'), cfg)\n"
+        "img = pt.render(scene, cfg)\n"
+        "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
+        "cfg = cfg.replace(backend='stream')\n"
+        "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene, "
+        "n_target=3000), engine='native'), cfg)\n"
+        "img = pt.render(scene, cfg)\n"
+        "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
+        "cfg = pt.PRESETS['config3'].replace(width=8, height=8, spp=2)\n"
+        "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene)), cfg)\n"
         "img = pt.render(scene, cfg)\n"
         "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

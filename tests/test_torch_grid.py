@@ -458,9 +458,10 @@ def test_routing(bvh_mesh, monkeypatch):
     assert wavefront._intersector(routed_scene.geometry,
                                   _cfg()).impl == "grid"
     assert torch.equal(render(routed_scene, _cfg()), explicit)
-    # Above the bound without grid tables: the stream route, not ported.
-    with pytest.raises(NotImplementedError, match="stream"):
-        wavefront._intersector(small.geometry, _cfg())
+    # Above the bound without grid tables: the stream route, with a warning.
+    with pytest.warns(UserWarning, match="stream route"):
+        assert wavefront._intersector(small.geometry,
+                                      _cfg()).impl == "stream"
 
 
 def _bad_pixels(img, want):

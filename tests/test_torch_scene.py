@@ -156,15 +156,17 @@ def test_scene_to_device_moves_every_tensor(bench_pair):
 
 
 def test_unported_routes_raise():
-    """big_mesh builds and the native BVH builder runs (the large-scene
-    slice); backend="stream" is still not ported and raises."""
+    """big_mesh builds, the native BVH builder runs, prepare_accel attaches
+    grid tables for "grid" and cluster tables for "stream" (no route raises
+    for being unported any more), and an unknown BVH engine raises."""
     big = builder.build_scene("big_mesh", n_target=3000)
     assert big.geometry.tri_v0.shape[0] == 12 + 2 * 1280
     scene = builder.cornell_spheres()
     grid_scene = prepare_accel(scene, RenderConfig(backend="grid"))
     assert grid_scene.geometry.gr_cell_start.shape[0] == 4 ** 3 + 1
-    with pytest.raises(NotImplementedError):
-        prepare_accel(scene, RenderConfig(backend="stream"))
+    stream_scene = prepare_accel(scene, RenderConfig(backend="stream"))
+    assert stream_scene.geometry.cl_lo.shape[0] > 0
+    assert stream_scene.geometry.gr_cell_start.shape[0] == 0
     native = with_bvh(scene, engine="native")
     assert native.geometry.bvh_lo.shape[0] > 0
     with pytest.raises(ValueError):
