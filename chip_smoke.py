@@ -2,23 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels (cluster, pair, stream and BVH walk) and the
-native BVH builder from the repository's sources, all at once. Holds each
-kernel against its plain PyTorch version at its main path's shapes, renders
-the golden scenes through the cluster, grid, BVH and stream routes and
-compares them with ``tests/golden``, then drives every path at full size:
-the ``bench`` preset (cornell_mesh, cluster route, K1) and the same scene
-through the BVH walk (K4); ``config2`` and ``config3`` (the BVH walk, K4);
-``config5`` (big_mesh, 2M triangles, grid route, K2) and the same scene
-through the BVH walk (K4) and through the stream route (K3), each rendered
-and timed. Every phase either passes or raises; the last line of standard
-output is ``{"ok": true, "device": {...}}`` only when all passed. There is
-no CPU path: without a CUDA device the script fails at once.
+Builds the five CUDA sources (the cluster, pair, stream and BVH-walk
+kernels and the three visit-arithmetic probes) and the native BVH builder
+from the repository's sources, all at once. Holds each kernel against its
+plain PyTorch version at its main path's shapes (the probes at the probe
+script's shapes and at full width on the bench table, timed beside their
+bounds and a library call), runs the probe entry point, renders the golden
+scenes through the cluster, grid, BVH and stream routes and compares them
+with ``tests/golden``, then drives every path at full size: the ``bench``
+preset (cornell_mesh, cluster route, K1) and the same scene through the BVH
+walk (K4); ``config2`` and ``config3`` (the BVH walk, K4); ``config5``
+(big_mesh, 2M triangles, grid route, K2) and the same scene through the
+BVH walk (K4) and through the stream route (K3), each rendered and timed;
+a value-and-grad step of the full bench frame through K1 and through K4;
+and material gradients against central differences. Every phase either
+passes or raises; the last line of standard output is
+``{"ok": true, "device": {...}}`` only when all passed. There is no CPU
+path: without a CUDA device the script fails at once.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import statistics
@@ -30,32 +36,49 @@ import numpy as np
 import torch
 
 import pathtracer_tpu_torch as pt
+from pathtracer_tpu_torch import constants as C
 from pathtracer_tpu_torch.accel import native
 from pathtracer_tpu_torch.accel.auto import prepare_accel
 from pathtracer_tpu_torch.accel.build import with_bvh
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.engine import wavefront
-from pathtracer_tpu_torch.engine.camera import tiled_pixel_ids
+from pathtracer_tpu_torch.diff import render as dr
+from pathtracer_tpu_torch.engine.camera import camera_rays, tiled_pixel_ids
 from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops import intersect_cluster as ic
 from pathtracer_tpu_torch.ops import intersect_grid as ig
 from pathtracer_tpu_torch.ops import intersect_stream as st
 from pathtracer_tpu_torch.ops import traverse_bvh as tb
+from pathtracer_tpu_torch.ops import visit_probe as vp
+from pathtracer_tpu_torch.sampling import rng as rng_mod
 from pathtracer_tpu_torch.scene import builder
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 KERNELS = {
-    # name: (CUDA source, the TPU kernel it replaces, its wrapper's module)
+    # name: (CUDA source, the TPU kernel it replaces, its wrapper's module,
+    # the module's launch counter)
     "cluster_hit": ("pathtracer_tpu_torch/ops/csrc/intersect_cluster.cu",
-                    "pathtracer_tpu/ops/intersect_cluster.py:211", ic),
+                    "pathtracer_tpu/ops/intersect_cluster.py:211", ic,
+                    "LAUNCHES"),
     "pair_hit": ("pathtracer_tpu_torch/ops/csrc/intersect_pair.cu",
-                 "pathtracer_tpu/ops/intersect_grid.py:279", ig),
+                 "pathtracer_tpu/ops/intersect_grid.py:279", ig, "LAUNCHES"),
     "stream_hit": ("pathtracer_tpu_torch/ops/csrc/intersect_stream.cu",
-                   "pathtracer_tpu/ops/intersect_stream.py:76", st),
+                   "pathtracer_tpu/ops/intersect_stream.py:76", st,
+                   "LAUNCHES"),
     "bvh_hit": ("pathtracer_tpu_torch/ops/csrc/traverse_bvh.cu",
-                "pathtracer_tpu/ops/traverse_pallas.py:92", tb),
+                "pathtracer_tpu/ops/traverse_pallas.py:92", tb, "LAUNCHES"),
+    "probe_f32": ("pathtracer_tpu_torch/ops/csrc/visit_probe.cu",
+                  "scripts/_probe_compile.py:19", vp, "F32_LAUNCHES"),
+    "probe_split_in": ("pathtracer_tpu_torch/ops/csrc/visit_probe.cu",
+                       "scripts/_probe_compile.py:30", vp,
+                       "SPLIT_IN_LAUNCHES"),
+    "probe_split_pre": ("pathtracer_tpu_torch/ops/csrc/visit_probe.cu",
+                        "scripts/_probe_compile.py:45", vp,
+                        "SPLIT_PRE_LAUNCHES"),
 }
+SOURCES = ("intersect_cluster", "intersect_pair", "intersect_stream",
+           "traverse_bvh", "visit_probe")
 CHECK_PIXELS = 256 * 1024  # rays per query in the kernel-vs-plain phases
 BVH_CHECK_PIXELS_C5 = 64 * 1024  # K4 vs plain on the config-5 scene
 T_RTOL, T_ATOL = 4e-3, 2e-4  # the reference's cluster-vs-brute t bar
@@ -64,6 +87,31 @@ GRID_BAR = 2e-3  # the reference's grid-vs-jnp render bar: |d| <= a + a|ref|
 GRID_BAD_PIXELS = 0.002  # ... on all but this share of pixels
 STREAM_FRAME_LIMIT_S = 120.0  # the stream frame runs at 1024^2 within this
 STREAM_PROBE_SIDE = 512  # ... judged by a frame of this side first
+PROBE_RTOL, PROBE_ATOL = 1e-5, 1e-6  # K5 vs its plain version
+# K6/K7 vs their plain versions: above the f32 summation-order differences
+# (7.2e-7 seen on values of 0.5-2) and below the split's own error (7.2e-6),
+# so a kernel that skipped the split would fail here.
+SPLIT_PLAIN_RTOL, SPLIT_PLAIN_ATOL = 0.0, 2e-6
+SPLIT_RTOL, SPLIT_ATOL = 1e-4, 1e-5  # K6/K7 vs the f32 result: the split
+SPLIT_FLOOR = 1e-6  # ... which must show: full-width max |K6/K7 - K5|
+PROBE_PAD_ROWS = vp.FEAT_ROWS  # bench rays: 11 feature rows padded to 16
+GRAD_STEPS = 3  # timed value-and-grad steps (median), after a warm-up
+FD_EPS = 2e-3  # tests/grad/test_grad.py's central-difference step
+FD_SIDE = 256  # the bench frame's side for the FD cases
+# The card's peak rates (NVIDIA's H100 SXM data sheet, dense): f32 on the
+# CUDA cores (an FMA counted as two), bf16 on the tensor cores, HBM.
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
+# f32 operations per (ray, triangle) test of visit.cuh: the four feature
+# dot products (40 multiplies + 36 adds), four sign multiplies, u + v and
+# |det| * T_MIN (compares and selects not counted).
+OPS_PER_TRI_TEST = 82
+# f32 operations per BVH node visit of traverse_bvh.cu: two slab
+# differences and products per axis (12), their min and max (6), the
+# entry/exit reductions (4) and two compares (leaf triangle tests are not
+# counted: the kernel does not report them).
+OPS_PER_NODE = 24
 
 
 def check(cond: bool, what: str) -> None:
@@ -80,12 +128,13 @@ def card_line() -> str:
 
 
 def reset_launches() -> None:
-    for _, _, module in KERNELS.values():
-        module.LAUNCHES = 0
+    for _, _, module, counter in KERNELS.values():
+        setattr(module, counter, 0)
 
 
 def launches() -> dict:
-    return {name: module.LAUNCHES for name, (_, _, module) in KERNELS.items()}
+    return {name: getattr(module, counter)
+            for name, (_, _, module, counter) in KERNELS.items()}
 
 
 def check_only(what: str, counts: dict, kernel: str) -> None:
@@ -118,16 +167,14 @@ def cuda_ms(fn, reps: int) -> float:
 def phase_build() -> None:
     """nvcc for each kernel source and g++ for the native BVH builder, all
     started together."""
-    sources = ("intersect_cluster", "intersect_pair", "intersect_stream",
-               "traverse_bvh")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
-        jobs = [pool.submit(_build.load, name) for name in sources]
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        jobs = [pool.submit(_build.load, name) for name in SOURCES]
         jobs.append(pool.submit(native.load))
         for job in jobs:
             job.result()
     print(f"[build] all sources: {time.perf_counter() - t0:.2f} s wall")
-    for name in sources:
+    for name in SOURCES:
         rec = _build.BUILDS[name]
         print(f"[build] {name}.cu: nvcc {rec['seconds']:.2f} s")
         for line in rec["log"].splitlines():
@@ -178,13 +225,37 @@ def compare_hits(name, t_k, s_k, t_p, s_p, mats) -> float:
 
 
 def new_totals() -> dict:
-    return {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    return {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "bound_ms": 0.0,
+            "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
 
 
 def add_totals(out, ms, plain_ms, err) -> None:
     out["ms"] += ms
     out["plain_ms"] += plain_ms
     out["max_abs_err"] = max(out["max_abs_err"], err)
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def add_bound(out, n_bytes, n_ops, peak=PEAK_F32) -> float:
+    """Adds one call's bound to out: the larger of its bytes (each input
+    read once, each output written once) over the memory rate and its
+    operations over `peak`; returns it in ms."""
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    ops_ms = n_ops / peak * 1e3
+    out["bytes_ms"] += bytes_ms
+    out["ops_ms"] += ops_ms
+    out["bound_ms"] += max(bytes_ms, ops_ms)
+    return max(bytes_ms, ops_ms)
+
+
+def tri_test_ops(visits, rays_per_block) -> int:
+    """f32 operations of visits (per block) cluster visits of
+    rays_per_block rays (a tensor or an int per block) x 128 triangles."""
+    return int((visits.to(torch.int64) * rays_per_block).sum()) \
+        * ic.CLUSTER_TRIS * OPS_PER_TRI_TEST
 
 
 def phase_kernel_vs_plain(scene, cfg, device) -> dict:
@@ -206,6 +277,9 @@ def phase_kernel_vs_plain(scene, cfg, device) -> dict:
         check(ic.LAUNCHES == n0 + 1, "cluster_hit launched the kernel")
         t_p, s_p, v_p = ic.cluster_hit_plain(cand, count, tnear, rayf, feat)
         err = compare_hits(name, t_k, s_k, t_p, s_p, mats)
+        bound = add_bound(out, nbytes(cand, count, tnear, rayf, feat, t_k,
+                                      s_k, v_k),
+                          tri_test_ops(v_k, ic.RAY_BLOCK))
         ms = cuda_ms(lambda: ic.cluster_hit(cand, count, tnear, rayf, feat),
                      20)
         plain_ms = cuda_ms(
@@ -215,7 +289,8 @@ def phase_kernel_vs_plain(scene, cfg, device) -> dict:
               f"visits/block kernel {v_k.float().mean().item():.2f} plain "
               f"{v_p.float().mean().item():.2f}; hit masks equal, t max abs "
               f"err {err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms")
         add_totals(out, ms, plain_ms, err)
     return out
 
@@ -259,6 +334,9 @@ def phase_bvh_vs_plain(label, scene, cfg, n_pixels, device, out) -> None:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = compare_hits(f"{label} {name}", t_k, s_k, t_p, s_p, g.tri_mat)
+        bound = add_bound(out, nbytes(g.bvh_nodes, g.bvh_tris, o, d, t_k,
+                                      s_k, v_k),
+                          int(v_k.to(torch.int64).sum()) * OPS_PER_NODE)
         ms = cuda_ms(lambda: tb.bvh_hit(g.bvh_nodes, g.bvh_tris, o, d), 20)
         print(f"[kernel] bvh_hit {label} {name} query: {R} rays, "
               f"{g.bvh_nodes.shape[0]} nodes, {int((s_k >= 0).sum())} hits, "
@@ -266,7 +344,8 @@ def phase_bvh_vs_plain(label, scene, cfg, n_pixels, device, out) -> None:
               f"plain {v_p.sum().item() / R:.2f} (per-block visits equal "
               f"{bool(torch.equal(v_k, v_p))}); hit masks equal, t max abs "
               f"err {err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms")
         add_totals(out, ms, plain_ms, err)
 
 
@@ -312,6 +391,11 @@ def phase_pair_vs_plain(scene, cfg, device) -> dict:
         t_p, s_p, v_p = ig.pair_hit_plain(*args)
         err = compare_hits(name, t_k, s_k, t_p, s_p, mats)
         check(torch.equal(v_k, v_p), f"{name}: visits per block differ")
+        P = pair_ray.shape[0]
+        per_block = (P - pb * torch.arange(v_k.shape[0], device=device)
+                     ).clamp(max=pb)
+        bound = add_bound(out, nbytes(*args[:5], t_k, s_k, v_k),
+                          tri_test_ops(v_k, per_block))
         ms = cuda_ms(lambda: ig.pair_hit(*args), 10)
         plain_ms = cuda_ms(lambda: ig.pair_hit_plain(*args), 1)
         print(f"[kernel] pair_hit {name} query, stage A: "
@@ -320,7 +404,8 @@ def phase_pair_vs_plain(scene, cfg, device) -> dict:
               f"hits, visits/block mean {v_k.float().mean().item():.2f} "
               f"max {int(v_k.max())}; hit masks equal, t max abs err "
               f"{err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms")
         add_totals(out, ms, plain_ms, err)
     return out
 
@@ -370,7 +455,7 @@ def phase_stream_vs_plain(scene, cfg, device) -> dict:
     out = new_totals()
     for name, q in zip(("closest", "shadow"), queries):
         check(len(q["inputs"]) > 0, f"stream {name} query ran no round")
-        ms = plain_ms = err = 0.0
+        ms = plain_ms = err = bound = 0.0
         bit_equal = True
         visits = []
         for args in q["inputs"]:
@@ -384,6 +469,8 @@ def phase_stream_vs_plain(scene, cfg, device) -> dict:
             plain_ms += (time.perf_counter() - t0) * 1e3
             err = max(err, compare_hits(name, t_k, s_k, t_p, s_p, mats))
             bit_equal = bit_equal and bool(torch.equal(t_k, t_p))
+            bound += add_bound(out, nbytes(*args, g.cl_feat, t_k, s_k, v_k),
+                               tri_test_ops(v_k, ic.RAY_BLOCK))
             ms += cuda_ms(lambda: st.stream_hit(*args, g.cl_feat), 5)
             visits.append(int(v_k.sum()))
         B = q["inputs"][0][0].shape[0]
@@ -391,7 +478,8 @@ def phase_stream_vs_plain(scene, cfg, device) -> dict:
               f"blocks, {len(q['inputs'])} rounds, visits per round "
               f"{visits} (mean per block {sum(visits) / B:.2f}); hit masks "
               f"equal, t max abs err {err:.3g}, t bit-equal {bit_equal}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (all rounds)")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms (all rounds)")
         add_totals(out, ms, plain_ms, err)
     return out
 
@@ -678,12 +766,327 @@ def phase_stream(scene, device, card: str) -> int:
     return counts["stream_hit"]
 
 
+PROBES = {
+    # kernel name: (probe variant, wrapper, plain version, peak rate)
+    "probe_f32": ("f32", vp.probe_f32, vp.probe_f32_plain, PEAK_F32),
+    "probe_split_in": ("split_in", vp.probe_split_in,
+                       vp.probe_split_in_plain, PEAK_BF16),
+    "probe_split_pre": ("split_pre", vp.probe_split_pre,
+                        vp.probe_split_pre_plain, PEAK_BF16),
+}
+LIB_CHUNK = 1 << 15  # rays per library product: (C*512, chunk) outputs
+
+
+def probe_args(name, mask, rayf, feat):
+    """A probe's inputs from the f32 rays and table: K7 takes them split."""
+    if name == "probe_split_pre":
+        return (mask, *vp.split_bf16(rayf), *vp.split_bf16(feat))
+    return (mask, rayf, feat)
+
+
+def bench_probe_inputs(scene, cfg, device):
+    """All-ones mask, the bench scene's f32 cluster table and the bench
+    frame's bounce-0 closest-hit ray features (all 1024² tile-ordered
+    rays), padded with zero rows from the port's 11 to the probe's 16."""
+    ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width, device=device)
+    rayf = record_main_path_queries(scene, cfg, ids)[0][3]
+    rays = torch.zeros((PROBE_PAD_ROWS, rayf.shape[1]), dtype=torch.float32,
+                       device=device)
+    rays[:rayf.shape[0]] = rayf
+    feat = scene.geometry.cl_feat
+    mask = torch.ones((vp.MASK_ROWS, feat.shape[1] // vp.CLUSTER_COLS),
+                      dtype=torch.int32, device=device)
+    return mask, rays, feat
+
+
+def probe_products(mask, n_rays) -> int:
+    """(ray, column) products a probe computes over n_rays rays: each
+    512-ray block b tests the clusters of mask row b % 8."""
+    rows = torch.arange(n_rays // vp.RAY_BLOCK, device=mask.device) \
+        % vp.MASK_ROWS
+    return int((mask[rows] > 0).sum()) * vp.RAY_BLOCK * vp.CLUSTER_COLS
+
+
+def library_min(name, mask, rayf, feat):
+    """The library yardstick of a probe: one torch.matmul per LIB_CHUNK
+    rays (f32 with TF32 off for K5; bf16 over the K = 48 hi/lo stacks for
+    K6 and K7, with a bf16 output) and the masked amin. Timed only."""
+    C = mask.shape[1]
+    R = rayf.shape[1]
+    if name == "probe_f32":
+        table, rays = feat.T, rayf
+    else:
+        (f_hi, f_lo), (r_hi, r_lo) = vp.split_bf16(feat), vp.split_bf16(rayf)
+        table = torch.cat([f_hi, f_hi, f_lo]).T
+        rays = torch.cat([r_hi, r_lo, r_hi])
+    rows = (torch.arange(R, device=rayf.device) // vp.RAY_BLOCK) \
+        % vp.MASK_ROWS
+    enabled = (mask[rows] > 0).T  # (C, R)
+    out = torch.empty((R,), dtype=torch.float32, device=rayf.device)
+    for r0 in range(0, R, LIB_CHUNK):
+        q = torch.matmul(table, rays[:, r0:r0 + LIB_CHUNK])
+        m = q.view(C, vp.CLUSTER_COLS, -1).amin(1).float()
+        m = torch.where(enabled[:, r0:r0 + LIB_CHUNK], m, vp.INIT)
+        out[r0:r0 + LIB_CHUNK] = torch.clamp(m.amin(0), max=vp.INIT)
+    return out
+
+
+def phase_probe_checks(bench, cfg, device) -> dict:
+    """K5-K7 against their plain versions at the probe script's shapes (R =
+    512, C = 4, a random mask) and at full width (the bench table against
+    the bench frame's bounce-0 rays, an all-ones mask), where they are also
+    timed beside their bound and the library yardstick; K6 and K7 are also
+    held to the f32 result at the split's bar, and must differ from it by
+    at least SPLIT_FLOOR."""
+    rng = np.random.default_rng(0)
+    small_mask = (rng.random((vp.MASK_ROWS, 4)) < 0.5).astype(np.int32)
+    small_mask[:, 0] = 1
+    _, small_rays, small_feat = vp.probe_inputs(seed=1, device=device)
+    small_mask = torch.from_numpy(small_mask).to(device)
+    full = bench_probe_inputs(bench, cfg, device)
+    print(f"[kernel] probe inputs: full width {full[1].shape[1]} rays x "
+          f"{full[0].shape[1]} clusters ({full[2].shape[1]} columns)")
+    out = {}
+    f32_full = None
+    for name, (variant, wrapper, plain, peak) in PROBES.items():
+        totals = new_totals()
+        for shape, (mask, rayf, feat) in (
+                ("script", (small_mask, small_rays, small_feat)),
+                ("full", full)):
+            args = probe_args(name, mask, rayf, feat)
+            n0 = launches()[name]
+            got = wrapper(*args)
+            torch.cuda.synchronize()
+            check(launches()[name] == n0 + 1, f"{name} launched its kernel")
+            want = plain(*args)
+            check(bool(torch.isfinite(got).all()), f"{name}: finite")
+            rtol, atol = ((PROBE_RTOL, PROBE_ATOL) if name == "probe_f32"
+                          else (SPLIT_PLAIN_RTOL, SPLIT_PLAIN_ATOL))
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+            err = (got - want).abs().max().item()
+            line = (f"[kernel] {name} ({variant}) {shape}: "
+                    f"{rayf.shape[1]} rays, {mask.shape[1]} clusters, "
+                    f"max abs err vs plain {err:.3g}")
+            if shape == "full":
+                if name == "probe_f32":
+                    f32_full = got
+                else:
+                    torch.testing.assert_close(got, f32_full,
+                                               rtol=SPLIT_RTOL,
+                                               atol=SPLIT_ATOL)
+                    split_err = (got - f32_full).abs().max().item()
+                    check(split_err >= SPLIT_FLOOR,
+                          f"{name}: max |split - f32| {split_err:.3g} below "
+                          f"{SPLIT_FLOOR}: the product was not split")
+                    line += f", vs f32 max abs {split_err:.3g}"
+                ops = probe_products(mask, rayf.shape[1]) * vp.FEAT_ROWS * 2 \
+                    * (1 if name == "probe_f32" else 3)
+                bound = add_bound(totals, nbytes(*args, got), ops, peak)
+                ms = cuda_ms(lambda: wrapper(*args), 5)
+                plain_ms = cuda_ms(lambda: plain(*args), 1)
+                lib = library_min(name, mask, rayf, feat)
+                lib_err = ((lib - want).abs()
+                           / want.abs().clamp(min=1e-6)).max().item()
+                totals["library_ms"] = cuda_ms(
+                    lambda: library_min(name, mask, rayf, feat), 2)
+                add_totals(totals, ms, plain_ms, err)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"library {totals['library_ms']:.4f} ms (max rel "
+                         f"diff {lib_err:.3g}), bound {bound:.4f} ms "
+                         f"({ops:.4g} {'f32' if peak == PEAK_F32 else 'bf16'}"
+                         f" operations, {nbytes(*args, got) / 1e6:.1f} MB)")
+            else:
+                totals["max_abs_err"] = max(totals["max_abs_err"], err)
+            print(line)
+        out[name] = totals
+    return out
+
+
+def phase_probe_entry() -> dict:
+    """The probe's entry point (python -m
+    pathtracer_tpu_torch.ops.visit_probe <variant>), in process, once per
+    variant at the script's shapes: each launches its own kernel once and
+    no other. Returns the launches."""
+    counts = {}
+    for name, (variant, _, _, _) in PROBES.items():
+        reset_launches()
+        check(vp.main([variant]) == 0, f"visit_probe {variant} failed")
+        n = launches()
+        check_only(f"visit_probe {variant}", n, name)
+        check(n[name] == 1, f"visit_probe {variant}: {n[name]} launches")
+        counts[name] = n[name]
+    return counts
+
+
+def seen_materials(scene, cfg, ids) -> list:
+    """Materials that the frame's camera rays hit."""
+    jitter = rng_mod.pixel_jitter(cfg.seed, 0, ids)
+    o, d = camera_rays(scene.camera, cfg.width, cfg.height, jitter, ids)
+    t, _, mat = wavefront._intersector(scene.geometry, cfg)(scene.geometry,
+                                                            o, d)
+    return torch.unique(mat[t < C.T_FAR]).tolist()
+
+
+def grad_step(scene, cfg, ids):
+    """One value-and-grad step of bench.py --grad: the loss mean(rad²) of
+    the tile-ordered frame and its grads w.r.t. the materials, with the
+    frame's useful rays."""
+    stats = {}
+
+    def loss_fn(mats):
+        rad, stats["n"] = wavefront.trace_sample(
+            scene.geometry, mats, scene.camera, scene.lights, cfg, ids, 0,
+            with_stats=True)
+        return torch.mean(rad * rad)
+
+    loss, grads = dr.value_and_grad(loss_fn, scene.materials)
+    return loss, int(stats["n"]), grads
+
+
+def synced_seconds(fn, n) -> list:
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_grad(scene, device, card) -> None:
+    """A value-and-grad step of the full bench frame, through K1 and
+    through K4: the loss equals the forward frame's bit for bit, the step
+    launches only its route's kernel, 2 per bounce (no recompute at 1 spp),
+    the grads are finite, non-zero for every albedo the camera sees, and
+    no geometry table takes a gradient even as a leaf that requires one.
+    Prints the median step seconds, grad and forward rays/s of the same
+    call, and the step's peak memory."""
+    for backend, kernel in (("cluster", "cluster_hit"), ("jnp", "bvh_hit")):
+        cfg = pt.PRESETS["bench"].replace(backend=backend)
+        ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width, device=device)
+        with torch.inference_mode():
+            rad = wavefront.trace_sample(*frame_args(scene, cfg, device))
+            fwd_loss = torch.mean(rad * rad).clone()
+            seen = seen_materials(scene, cfg, ids)
+        reset_launches()
+        loss, n, grads = grad_step(scene, cfg, ids)
+        torch.cuda.synchronize()
+        counts = launches()
+        check_only(f"grad {backend}", counts, kernel)
+        check(counts[kernel] == 2 * cfg.max_depth,
+              f"grad {backend}: {counts[kernel]} launches, expected "
+              f"{2 * cfg.max_depth}")
+        check(torch.equal(loss, fwd_loss), f"grad {backend}: loss "
+              f"{loss.item()!r} differs from the forward frame's "
+              f"{fwd_loss.item()!r}")
+        check(bool(torch.isfinite(grads.albedo).all()
+                   and torch.isfinite(grads.emission).all()),
+              f"grad {backend}: finite grads")
+        zero = [m for m in seen if not bool((grads.albedo[m] != 0).any())]
+        check(not zero, f"grad {backend}: seen materials {zero} have zero "
+              "albedo grads")
+        geometry_gets_no_grad(scene, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        steps = synced_seconds(lambda: grad_step(scene, cfg, ids), GRAD_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with torch.inference_mode():
+            fwd = synced_seconds(
+                lambda: wavefront.trace_sample(*frame_args(scene, cfg,
+                                                           device)),
+                GRAD_STEPS)
+        step_s, fwd_s = statistics.median(steps), statistics.median(fwd)
+        print(f"[grad] bench backend={backend} ({kernel}) {cfg.width}x"
+              f"{cfg.height} depth {cfg.max_depth}: loss {loss.item()!r} "
+              f"bit-equal to the forward frame's, launches {counts}, seen "
+              f"materials {seen} all with non-zero albedo grads, no geometry "
+              f"table took a gradient, albedo grad abs sum "
+              f"{grads.albedo.abs().sum().item():.6g}, emission "
+              f"{grads.emission.abs().sum().item():.6g}; step s "
+              f"{[round(x, 6) for x in steps]}, median {step_s:.6f} s, "
+              f"{n / step_s:.1f} grad rays/s vs forward {n / fwd_s:.1f} "
+              f"useful rays/s (frame {fwd_s:.6f} s, ratio "
+              f"{step_s / fwd_s:.3f}), {n} useful rays, peak device memory "
+              f"{peak:.3f} GiB on {card}")
+
+
+def fd_grad(scene, cfg, field, idx, ch) -> float:
+    """Central difference of mean(image) in one material entry."""
+    means = []
+    for sign in (-1.0, 1.0):
+        arr = getattr(scene.materials, field).clone()
+        arr[idx, ch] += sign * FD_EPS
+        with torch.inference_mode():
+            img = dr.render_image(scene, cfg,
+                                  scene.materials.replace(**{field: arr}))
+        means.append(img.double().mean().item())
+    return (means[1] - means[0]) / (2 * FD_EPS)
+
+
+def geometry_gets_no_grad(scene, cfg) -> None:
+    """Every float geometry table as a leaf that requires grad: after a
+    backward pass none has a non-zero gradient."""
+    g = scene.geometry
+    leaves = {f.name: getattr(g, f.name).clone().requires_grad_(True)
+              for f in dataclasses.fields(g)
+              if getattr(g, f.name).is_floating_point()}
+    geom = dataclasses.replace(g, **leaves)
+    mats = scene.materials.replace(
+        albedo=scene.materials.albedo.clone().requires_grad_(True))
+    ids = torch.arange(cfg.n_pixels, dtype=torch.int64,
+                       device=g.tri_v0.device)
+    wavefront.trace_sample(geom, mats, scene.camera, scene.lights, cfg, ids,
+                           0).mean().backward()
+    check(mats.albedo.grad is not None, "no albedo grad")
+    bad = [n for n, x in leaves.items()
+           if x.grad is not None and bool((x.grad != 0).any())]
+    check(not bad, f"geometry tables {bad} took a gradient")
+
+
+def phase_grad_fd(bench, device) -> None:
+    """Material grads against central differences at the bars of
+    tests/grad/test_grad.py: config4 as it stands (brute force, 4 spp, so
+    the spp checkpoint), and one albedo entry of bench at 256² with RR off
+    through K1 and through K4."""
+    spheres = builder.build_scene("cornell_spheres").to(device)
+    alb = [("albedo", m, ch, 2e-2, 1e-5) for m, ch in
+           ((builder.WHITE, 0), (builder.RED, 0), (builder.GREEN, 1))]
+    emis = [("emission", builder.LIGHT, ch, 2e-2, 1e-6) for ch in range(3)]
+    bench_cfg = pt.PRESETS["bench"].replace(width=FD_SIDE, height=FD_SIDE,
+                                            rr_start=99)
+    cases = [
+        ("config4", spheres, pt.PRESETS["config4"], alb + emis),
+        ("bench K1", bench, bench_cfg, alb[:1]),
+        ("bench K4", bench, bench_cfg.replace(backend="jnp"), alb[:1]),
+    ]
+    for label, scene, cfg, entries in cases:
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = dr.grad_render(scene, cfg)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        for field, idx, ch, rtol, atol in entries:
+            g = getattr(grads, field)[idx, ch].item()
+            fd = fd_grad(scene, cfg, field, idx, ch)
+            print(f"[grad] fd {label} {cfg.width}x{cfg.height} spp {cfg.spp} "
+                  f"depth {cfg.max_depth}: d mean / d {field}[{idx},{ch}] "
+                  f"autograd {g:.6g}, central difference {fd:.6g} (rel "
+                  f"{abs(g - fd) / max(abs(fd), 1e-30):.3g}; bar rtol {rtol} "
+                  f"atol {atol}); grad step {grad_s:.3f} s, launches "
+                  f"{launches()}")
+            check(abs(g - fd) <= atol + rtol * abs(fd),
+                  f"fd {label} {field}[{idx},{ch}]: {g} vs {fd}")
+
+
 def kernel_entry(name, n_launches, k) -> dict:
-    source, replaces, _ = KERNELS[name]
+    source, replaces, _, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launches,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"]}
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": ("operations" if k["ops_ms"] >= k["bytes_ms"]
+                         else "bytes"),
+            "library_ms": k["library_ms"]}
 
 
 def main() -> int:
@@ -698,6 +1101,7 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     phase_build()
+    probe_launches = phase_probe_entry()
     with torch.inference_mode():
         t0 = time.perf_counter()
         bench = bench_scene(pt.PRESETS["bench"], device)
@@ -706,6 +1110,7 @@ def main() -> int:
               f"{bench.geometry.bvh_lo.shape[0]} BVH nodes, host build "
               f"{time.perf_counter() - t0:.2f} s")
         k1 = phase_kernel_vs_plain(bench, pt.PRESETS["bench"], device)
+        probes = phase_probe_checks(bench, pt.PRESETS["bench"], device)
         k4 = new_totals()
         c3 = pt.PRESETS["config3"]
         phase_bvh_vs_plain("config3", bench_scene(c3, device), c3,
@@ -736,11 +1141,19 @@ def main() -> int:
         del host
         k3 = phase_stream_vs_plain(scene, c5_stream, device)
         k3_launches = phase_stream(scene, device, card)
+        del scene
+    torch.cuda.empty_cache()
+    # Gradients need tensors made outside inference mode: a new scene.
+    bench = bench_scene(pt.PRESETS["bench"], device)
+    phase_grad(bench, device, card)
+    phase_grad_fd(bench, device)
     print(json.dumps({"kernels": [
         kernel_entry("cluster_hit", k1_launches, k1),
         kernel_entry("pair_hit", k2_launches, k2),
         kernel_entry("stream_hit", k3_launches, k3),
         kernel_entry("bvh_hit", k4_launches, k4),
+        *(kernel_entry(name, probe_launches[name], probes[name])
+          for name in PROBES),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

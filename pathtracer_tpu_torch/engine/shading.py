@@ -21,13 +21,54 @@ def norm3(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(dot3(a, a))
 
 
+# Differentiable tables of at most this many rows take the scatter-free
+# transpose of _SmallRows; larger ones the gather's own backward (the
+# reference's take_small_rows threshold).
+_SMALL_ROWS = 32
+
+
+class _SmallRows(torch.autograd.Function):
+    """rows[clamp(eff)] whose backward is one masked sum of the cotangent per
+    row, the reference's scatter-free transpose, instead of the gather's
+    accumulating index_put: on the card that sorts a million ids into a
+    handful of rows and adds each row's long run of duplicates serially."""
+
+    @staticmethod
+    def forward(ctx, rows, eff):
+        ctx.save_for_backward(eff)
+        ctx.n_rows = rows.shape[0]
+        return rows[eff.clamp(0, rows.shape[0] - 1)]
+
+    @staticmethod
+    def backward(ctx, g):
+        (eff,) = ctx.saved_tensors
+        shape = eff.shape + (1,) * (g.dim() - eff.dim())
+        d_rows = torch.stack([
+            torch.where((eff == m).reshape(shape), g, 0.0).sum(dim=0)
+            for m in range(ctx.n_rows)
+        ])
+        return d_rows, None
+
+
 def take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """rows[idx] with JAX gather semantics: negative ids wrap, then every id
-    is clamped into range (torch would raise)."""
+    """rows[idx] with JAX gather semantics in both directions (the
+    reference's take_small_rows). Forward: negative ids wrap once, then
+    every id is clamped into range (torch would raise). Backward: a wrapped
+    id credits its row, an id still out of range after the wrap credits
+    nothing (JAX's scatter drops it; a clamped torch gather would credit
+    the edge row); tables of up to _SMALL_ROWS rows take the scatter-free
+    transpose."""
     L = rows.shape[0]
     idx = idx.to(torch.int64)
-    idx = torch.where(idx < 0, idx + L, idx).clamp(0, L - 1)
-    return rows[idx]
+    idx = torch.where(idx < 0, idx + L, idx)
+    if rows.requires_grad and L <= _SMALL_ROWS:
+        return _SmallRows.apply(rows, idx)
+    out = rows[idx.clamp(0, L - 1)]
+    if out.requires_grad:
+        inside = ((idx >= 0) & (idx < L)).reshape(
+            idx.shape + (1,) * (rows.dim() - 1))
+        out = torch.where(inside, out, out.detach())
+    return out
 
 
 def onb(n):

@@ -12,8 +12,13 @@ vertices use NEE + cosine sampling; mirror and dielectric vertices are
 delta lobes (no NEE; the next emissive hit is credited directly). All lanes
 compute all three lobes and select by material type.
 
-No gradient is taken in this slice: trace_sample runs under
-``torch.inference_mode()``.
+Gradients flow to the materials (albedo, emission) under the reference's
+detach policy (diff/render.py): the intersection is a no-gradient boundary
+(its kernels return none, its outputs t and n_geom are detached, and its
+inputs are detached so that its glue records no graph); the MIS weights,
+the NEE geometric term and the roulette probability are detached too. The
+forward-only entry points, render and render_accumulate, run trace_sample
+under ``torch.inference_mode()`` and so build no graph.
 """
 
 from __future__ import annotations
@@ -187,7 +192,6 @@ def _material_rows(geometry, materials) -> torch.Tensor:
     ], dim=1)
 
 
-@torch.inference_mode()
 def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
                  pixel_ids: torch.Tensor, spp_idx: int,
                  with_stats: bool = False):
@@ -242,8 +246,11 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
         # grid route skips its full-width first phase (the reference's
         # choice of bounce >= 3).
         sparse = bounce >= 3
-        t, n_geom, mat = intersect(geometry, o_q, d_q, t_max=t_cap,
-                                   sparse_hint=sparse)
+        t, n_geom, mat = intersect(geometry, o_q.detach(), d_q.detach(),
+                                   t_max=t_cap, sparse_hint=sparse)
+        # Detach geometry: grads flow only through the shading chain.
+        t = t.detach()
+        n_geom = n_geom.detach()
         hit = t < C.T_FAR
         mrow = take_rows(mat_rows, mat)
         alb_m = mrow[:, 0:3]
@@ -264,7 +271,7 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
                                                   min=1e-12)
             w_b = (prev_pdf * prev_pdf) / torch.clamp(
                 prev_pdf * prev_pdf + p_nee * p_nee, min=1e-20)
-            w_emit = torch.where(spec_chain, 1.0, w_b)
+            w_emit = torch.where(spec_chain, 1.0, w_b).detach()
             prim = alive & hit & (cos_in > 0.0)
             radiance = radiance + torch.where(
                 prim[:, None], throughput * emis_m * w_emit[:, None], 0.0)
@@ -300,7 +307,8 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
             o_shq = torch.where(cand[:, None], o_sh, 0.0)
             wi_q = torch.where(cand[:, None], wi, canon)
             t_sh_cap = torch.where(cand, dist, C.T_MIN)
-            t_sh, _, _ = intersect(geometry, o_shq, wi_q, t_max=t_sh_cap,
+            t_sh, _, _ = intersect(geometry, o_shq.detach(), wi_q.detach(),
+                                   t_max=t_sh_cap.detach(),
                                    sparse_hint=sparse)
             vis = t_sh >= dist * (1.0 - C.SHADOW_REL_EPS)
             geo_term = (cos_s * cos_l * total_area
@@ -315,7 +323,7 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
                                                   min=1e-20)
                 geo_term = geo_term * w_nee
             contrib = throughput * (alb_m / math.pi) * emis_l \
-                * geo_term[:, None]
+                * geo_term.detach()[:, None]
             radiance = radiance + torch.where(
                 (cand & vis)[:, None], contrib, 0.0)
 
@@ -353,7 +361,7 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
         # --- Russian roulette ------------------------------------------
         if bounce >= cfg.rr_start:
             pcont = torch.clamp(throughput.max(dim=-1).values,
-                                C.RR_CLAMP_LO, C.RR_CLAMP_HI)
+                                C.RR_CLAMP_LO, C.RR_CLAMP_HI).detach()
             kill = U[:, rng_mod.RR_U] >= pcont
             alive = alive & ~kill
             throughput = torch.where(
@@ -398,6 +406,7 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
     return radiance
 
 
+@torch.inference_mode()
 def render_accumulate(scene: Scene, cfg: RenderConfig, materials=None,
                       spp_start: int = 0, n_spp: int | None = None):
     """Sum of n_spp samples starting at spp_start, as a flat (N, 3) tensor,
@@ -418,6 +427,7 @@ def render_accumulate(scene: Scene, cfg: RenderConfig, materials=None,
     return acc
 
 
+@torch.inference_mode()
 def render(scene: Scene, cfg: RenderConfig, materials=None):
     """Full render → (height, width, 3) float32 linear-radiance image, on
     the scene's device."""

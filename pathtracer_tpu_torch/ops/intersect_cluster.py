@@ -30,6 +30,7 @@ from .. import constants as C
 from ..accel.clusters import CLUSTER_COLS, CLUSTER_TRIS, FEAT_ROWS
 from ..engine.intersect import merge_spheres
 from . import _build
+from .boundary import no_gradient
 
 RAY_BLOCK = 512  # rays per cull block = rays per CUDA thread block
 RAY_FEATS = 11  # ray-feature rows: 10 pair with the table, row 10 = t_max
@@ -357,7 +358,12 @@ def cluster_hit(cand, count, tnear, rayf, feat):
     exit, and count the launch in LAUNCHES; a failed launch raises.
     Returns (t, slot, visits) as cluster_hit_plain does, except that
     visits counts the clusters the early-exiting walk actually tested.
+    An autograd boundary (ops/boundary.py): no gradient flows back.
     """
+    return no_gradient(_cluster_hit, cand, count, tnear, rayf, feat)
+
+
+def _cluster_hit(cand, count, tnear, rayf, feat):
     global LAUNCHES
     _check_hit_inputs(cand, count, tnear, rayf, feat)
     dev = rayf.device

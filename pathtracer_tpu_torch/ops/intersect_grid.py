@@ -47,6 +47,7 @@ from .. import constants as C
 from ..accel.clusters import CLUSTER_COLS, FEAT_ROWS
 from ..engine.intersect import merge_spheres
 from . import _build
+from .boundary import no_gradient
 from .intersect_cluster import (
     RAY_FEATS,
     _FEAT_USED,
@@ -350,7 +351,14 @@ def pair_hit(offsets, cand, pair_ray, rayf, feat,
     (built at first use) on the current stream, one block of `pair_block`
     threads per pair block, and count the launch in LAUNCHES; a failed
     launch raises.
+    An autograd boundary (ops/boundary.py): no gradient flows back.
     """
+    return no_gradient(_pair_hit, offsets, cand, pair_ray, rayf, feat,
+                       pair_block)
+
+
+def _pair_hit(offsets, cand, pair_ray, rayf, feat,
+              pair_block: int = PAIR_BLOCK):
     global LAUNCHES
     _check_pair_inputs(offsets, cand, pair_ray, rayf, feat, pair_block)
     dev = rayf.device

@@ -38,6 +38,7 @@ from .. import constants as C
 from ..accel.clusters import CLUSTER_COLS
 from ..engine.intersect import merge_spheres
 from . import _build
+from .boundary import no_gradient
 from .intersect_cluster import (
     RAY_BLOCK,
     _check_hit_inputs,
@@ -112,7 +113,13 @@ def stream_hit(cand, count, tnear, rayf, t_in, slot_in, feat):
     exit, and count the launch in LAUNCHES; a failed launch raises.
     Returns (t, slot, visits) as stream_hit_plain does, except that visits
     counts the clusters the early-exiting walk actually tested.
+    An autograd boundary (ops/boundary.py): no gradient flows back.
     """
+    return no_gradient(_stream_hit, cand, count, tnear, rayf, t_in, slot_in,
+                       feat)
+
+
+def _stream_hit(cand, count, tnear, rayf, t_in, slot_in, feat):
     global LAUNCHES
     _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat)
     dev = rayf.device

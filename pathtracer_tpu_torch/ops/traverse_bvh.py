@@ -30,6 +30,7 @@ import torch
 
 from ..accel.traverse import CHUNK, hit_from_index, walk
 from . import _build
+from .boundary import no_gradient
 
 NODE_WORDS = 8
 TRI_WORDS = 12
@@ -144,7 +145,12 @@ def bvh_hit(nodes, tris, o, d, max_leaf: int = 4):
     CPU tensors run the plain version. CUDA tensors launch the CUDA kernel
     (built at first use) on the current stream, one thread per ray, and
     count the launch in LAUNCHES; a failed launch raises.
+    An autograd boundary (ops/boundary.py): no gradient flows back.
     """
+    return no_gradient(_bvh_hit, nodes, tris, o, d, max_leaf)
+
+
+def _bvh_hit(nodes, tris, o, d, max_leaf: int = 4):
     global LAUNCHES
     _check_inputs(nodes, tris, o, d)
     dev = o.device

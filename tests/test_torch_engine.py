@@ -90,7 +90,7 @@ def test_slice_matches_reference(small_mesh):
     bounce 2) at 32x32 against the reference on the same scene."""
     ref, scene = small_mesh
     cfg, ref_cfg = _both(SLICE)
-    img = render(scene, cfg).numpy()
+    img = render(scene, cfg, device="cpu").numpy()
     want = np.asarray(ref_wavefront.render(ref, ref_cfg))
     assert img.shape == (32, 32, 3)
     np.testing.assert_allclose(img, want, rtol=2e-3, atol=2e-3)
@@ -105,7 +105,7 @@ def test_trace_sample_stats_and_tiled_order(small_mesh):
     rad, n = wavefront.trace_sample(scene.geometry, scene.materials,
                                     scene.camera, scene.lights, cfg, ids, 0,
                                     with_stats=True)
-    img = render(scene, cfg).reshape(-1, 3)
+    img = render(scene, cfg, device="cpu").reshape(-1, 3)
     assert torch.equal(rad, img[ids])
     assert cfg.n_pixels < int(n) < 2 * cfg.max_depth * cfg.n_pixels
 
@@ -115,8 +115,8 @@ def test_compact_equals_plain_bit_for_bit(small_mesh, backend):
     _, scene = small_mesh
     cfg = RenderConfig(**{**SLICE, "rr_start": 1, "backend": backend,
                           "use_bvh": backend == "cluster"})
-    a = render(scene, cfg)
-    b = render(scene, cfg.replace(compact=False))
+    a = render(scene, cfg, device="cpu")
+    b = render(scene, cfg.replace(compact=False), device="cpu")
     assert torch.equal(a, b)
 
 
@@ -135,7 +135,7 @@ def test_brute_path_matches_reference(scene_name, cfg):
     branches, on the brute-force route."""
     ref = ref_builder.build_scene(scene_name)
     cfg, ref_cfg = _both({**cfg, "scene": scene_name})
-    img = render(_carry(ref), cfg).numpy()
+    img = render(_carry(ref), cfg, device="cpu").numpy()
     want = np.asarray(ref_wavefront.render(ref, ref_cfg))
     if cfg.max_depth == 1:
         np.testing.assert_allclose(img, want, atol=5e-4, rtol=1e-3)
@@ -146,8 +146,8 @@ def test_brute_path_matches_reference(scene_name, cfg):
 def test_spp_chunking_sums_samples(small_mesh):
     _, scene = small_mesh
     cfg = RenderConfig(**{**SLICE, "width": 16, "height": 16, "spp": 3})
-    full = render(scene, cfg)
-    chunked = render(scene, cfg.replace(spp_chunk=1))
+    full = render(scene, cfg, device="cpu")
+    chunked = render(scene, cfg.replace(spp_chunk=1), device="cpu")
     np.testing.assert_allclose(chunked.numpy(), full.numpy(), atol=1e-6)
     parts = [wavefront.render_accumulate(scene, cfg, spp_start=s, n_spp=1)
              for s in range(3)]
@@ -173,7 +173,7 @@ def test_port_matches_golden(name):
         scene = prepare_accel(with_bvh(builder.cornell_mesh(
             mesh_tris=builder.procedural_bunny(2))), cfg)
         rtol, atol = 2e-3, 2e-3
-    img = render(scene, cfg).numpy()
+    img = render(scene, cfg, device="cpu").numpy()
     np.testing.assert_allclose(img, golden, rtol=rtol, atol=atol)
 
 
@@ -192,7 +192,7 @@ def test_backend_routes(backend, use_bvh, impl):
         scene = with_bvh(scene)
     scene = prepare_accel(scene, cfg)
     assert wavefront._intersector(scene.geometry, cfg).impl == impl
-    img = render(scene, cfg)
+    img = render(scene, cfg, device="cpu")
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
@@ -203,11 +203,13 @@ def test_unported_backends_raise(small_mesh):
     renders each one)."""
     _, scene = small_mesh
     with pytest.raises(ValueError, match="prepare_accel"):
-        render(scene, RenderConfig(**{**SLICE, "backend": "grid"}))
+        render(scene, RenderConfig(**{**SLICE, "backend": "grid"}),
+               device="cpu")
     bvh_only = with_bvh(builder.cornell_mesh(
         mesh_tris=builder.procedural_bunny(2)))
     with pytest.raises(ValueError, match="prepare_accel"):
-        render(bvh_only, RenderConfig(**{**SLICE, "backend": "stream"}))
+        render(bvh_only, RenderConfig(**{**SLICE, "backend": "stream"}),
+               device="cpu")
 
 
 def test_port_imports_no_jax():
@@ -219,22 +221,29 @@ def test_port_imports_no_jax():
         "from pathtracer_tpu_torch.accel.build import with_bvh\n"
         "cfg = pt.PRESETS['bench'].replace(width=8, height=8)\n"
         "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene)), cfg)\n"
-        "img = pt.render(scene, cfg)\n"
+        "img = pt.render(scene, cfg, device='cpu')\n"
         "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
         "cfg = pt.PRESETS['config5'].replace(width=8, height=8)\n"
         "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene, "
         "n_target=3000), engine='native'), cfg)\n"
-        "img = pt.render(scene, cfg)\n"
+        "img = pt.render(scene, cfg, device='cpu')\n"
         "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
         "cfg = cfg.replace(backend='stream')\n"
         "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene, "
         "n_target=3000), engine='native'), cfg)\n"
-        "img = pt.render(scene, cfg)\n"
+        "img = pt.render(scene, cfg, device='cpu')\n"
         "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
         "cfg = pt.PRESETS['config3'].replace(width=8, height=8, spp=2)\n"
         "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene)), cfg)\n"
-        "img = pt.render(scene, cfg)\n"
+        "img = pt.render(scene, cfg, device='cpu')\n"
         "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
+        "cfg = pt.PRESETS['config4'].replace(width=8, height=8, spp=2)\n"
+        "loss, g = pt.grad_render(pt.build_scene(cfg.scene), cfg, "
+        "device='cpu')\n"
+        "assert bool(torch.isfinite(g.albedo).all()) and float(loss) > 0\n"
+        "from pathtracer_tpu_torch import band_profile  # noqa: F401\n"
+        "from pathtracer_tpu_torch.ops import visit_probe\n"
+        "assert visit_probe.main(['split_pre', '--device', 'cpu']) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('pathtracer_tpu.') or m == 'pathtracer_tpu']\n"
         "assert not bad, bad\n"
@@ -245,4 +254,22 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_entry_points_default_to_the_card(small_mesh, monkeypatch):
+    """render and grad_render run on CUDA unless given device="cpu": with
+    no CUDA device they raise, with device="cpu" they run there."""
+    import pathtracer_tpu_torch as pt
+
+    _, scene = small_mesh
+    cfg = RenderConfig(**{**SLICE, "width": 8, "height": 8})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.render(scene, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.grad_render(scene, cfg)
+    img = pt.render(scene, cfg, device="cpu")
+    assert img.device.type == "cpu" and img.shape == (8, 8, 3)
+    loss, grads = pt.grad_render(scene, cfg, device="cpu")
+    assert grads.albedo.device.type == "cpu" and float(loss) > 0.0

@@ -451,13 +451,13 @@ def test_routing(bvh_mesh, monkeypatch):
     small = prepare_accel(bvh_mesh, _cfg())
     assert small.geometry.gr_cell_start.shape[0] == 0
     assert wavefront._intersector(small.geometry, _cfg()).impl == "cluster"
-    explicit = render(grid_scene, _cfg(backend="grid"))
+    explicit = render(grid_scene, _cfg(backend="grid"), device="cpu")
     monkeypatch.setattr(ic, "_ROUTE_TABLE_BYTES", 0)
     routed_scene = prepare_accel(bvh_mesh, _cfg())
     assert routed_scene.geometry.gr_cell_start.shape[0] > 1
     assert wavefront._intersector(routed_scene.geometry,
                                   _cfg()).impl == "grid"
-    assert torch.equal(render(routed_scene, _cfg()), explicit)
+    assert torch.equal(render(routed_scene, _cfg(), device="cpu"), explicit)
     # Above the bound without grid tables: the stream route, with a warning.
     with pytest.warns(UserWarning, match="stream route"):
         assert wavefront._intersector(small.geometry,
@@ -477,7 +477,7 @@ def test_grid_render_matches_reference():
     cfg = dict(width=48, height=48, spp=1, max_depth=5, scene="cornell_mesh",
                backend="grid")
     want = np.asarray(ref_wavefront.render(ref, RefConfig(**cfg)))
-    img = render(_carry(ref), RenderConfig(**cfg)).numpy()
+    img = render(_carry(ref), RenderConfig(**cfg), device="cpu").numpy()
     assert _bad_pixels(img, want) < 0.002
 
 
@@ -486,7 +486,7 @@ def test_grid_render_matches_golden():
                        scene="cornell_mesh", use_bvh=True, backend="grid")
     scene = prepare_accel(with_bvh(builder.cornell_mesh(
         mesh_tris=builder.procedural_bunny(2))), cfg, grid_axis=8)
-    img = render(scene, cfg).numpy()
+    img = render(scene, cfg, device="cpu").numpy()
     golden = np.load(os.path.join(ROOT, "tests", "golden", "config3_32.npy"))
     assert _bad_pixels(img, golden) < 0.002
 
@@ -504,6 +504,6 @@ def test_big_mesh_render_matches_reference():
                        torch.from_numpy(np.asarray(ref.geometry
                                                    .gr_cell_start)))
     want = np.asarray(ref_wavefront.render(ref, RefConfig(**cfg)))
-    img = render(port, RenderConfig(**cfg)).numpy()
+    img = render(port, RenderConfig(**cfg), device="cpu").numpy()
     assert img.mean() > 0.0
     assert _bad_pixels(img, want) < 0.002

@@ -227,7 +227,7 @@ def test_stream_route_matches_reference_engine(mesh_pair):
     ref, scene = mesh_pair
     cfg = dict(width=24, height=24, spp=1, max_depth=2, rr_start=2,
                scene="cornell_mesh", use_bvh=True, backend="stream")
-    img = render(scene, RenderConfig(**cfg)).numpy()
+    img = render(scene, RenderConfig(**cfg), device="cpu").numpy()
     want = np.asarray(ref_wavefront.render(ref, RefConfig(**cfg)))
     np.testing.assert_allclose(img, want, atol=1e-3, rtol=2e-3)
 
@@ -240,11 +240,11 @@ def test_over_bound_without_grid_warns_and_streams(monkeypatch):
         mesh_tris=builder.procedural_bunny(2))))
     cfg = RenderConfig(width=16, height=16, spp=1, max_depth=2,
                        scene="cornell_mesh", backend="cluster")
-    explicit = render(scene, cfg.replace(backend="stream"))
+    explicit = render(scene, cfg.replace(backend="stream"), device="cpu")
     monkeypatch.setattr(ic, "_ROUTE_TABLE_BYTES", 0)
     with pytest.warns(UserWarning, match="falling back"):
         hit = wavefront._intersector(scene.geometry, cfg)
     assert hit.impl == "stream"
     with pytest.warns(UserWarning, match="falling back"):
-        routed = render(scene, cfg)
+        routed = render(scene, cfg, device="cpu")
     assert torch.equal(routed, explicit)

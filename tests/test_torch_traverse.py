@@ -227,7 +227,7 @@ def test_bvh_routes_match_reference_engine(mesh_pair, backend, depth):
     ref, scene = mesh_pair
     cfg = dict(width=24, height=24, spp=1, max_depth=depth, rr_start=2,
                scene="cornell_mesh", use_bvh=True, backend=backend)
-    img = render(scene, RenderConfig(**cfg)).numpy()
+    img = render(scene, RenderConfig(**cfg), device="cpu").numpy()
     want = np.asarray(ref_wavefront.render(ref, RefConfig(**cfg)))
     if depth == 1:
         np.testing.assert_allclose(img, want, atol=5e-4, rtol=1e-3)
@@ -247,6 +247,6 @@ def test_goldens_through_bvh_route(name, cfg):
     assert cfg.backend == "jnp"
     scene = with_bvh(builder.cornell_mesh(
         mesh_tris=builder.procedural_bunny(2)))
-    img = render(scene, cfg).numpy()
+    img = render(scene, cfg, device="cpu").numpy()
     golden = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npy"))
     np.testing.assert_allclose(img, golden, atol=1e-5, rtol=1e-5)
