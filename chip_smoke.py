@@ -7,7 +7,9 @@ kernels and the three visit-arithmetic probes) and the native BVH builder
 from the repository's sources, all at once. Holds each kernel against its
 plain PyTorch version at its main path's shapes (the probes at the probe
 script's shapes and at full width on the bench table, timed beside their
-bounds and a library call), runs the probe entry point, renders the golden
+bounds and a library call; the pair and stream kernels, whose visit is the
+split product on the tensor cores, also against the f32 product at the
+reference's bar), runs the probe entry point, renders the golden
 scenes through the cluster, grid, BVH and stream routes and compares them
 with ``tests/golden``, then drives every path at full size: the ``bench``
 preset (cornell_mesh, cluster route, K1) and the same scene through the BVH
@@ -83,6 +85,34 @@ CHECK_PIXELS = 256 * 1024  # rays per query in the kernel-vs-plain phases
 BVH_CHECK_PIXELS_C5 = 64 * 1024  # K4 vs plain on the config-5 scene
 T_RTOL, T_ATOL = 4e-3, 2e-4  # the reference's cluster-vs-brute t bar
 MAT_AGREE = 0.999
+# K2/K3 (the split product on the tensor cores) against their plain
+# versions on the split table: only the summation order inside an mma
+# k-step differs, so hit masks agree on all but 1e-5 of rays and t within
+# the probe's K6-vs-plain bar where both hit.
+SPLIT_HIT_AGREE, SPLIT_T_ATOL = 0.99999, 2e-6
+# ... and against the f32 product (visit_plain on the f32 table) at the
+# reference's bar (TPU_CHECKS.md: hit agreement 1.0000, materials
+# 0.9998): what the engine reads of each result (engine_reads) agrees on
+# F32_HIT_AGREE of a closest-hit query's entries and on all but
+# SHADOW_FLIPS of a shadow query's; where both hit, materials agree on
+# MAT_AGREE; and the split's error explains (split_explains) every flip the
+# engine reads and every t outside T_RTOL / T_ATOL of the f32 t. The split
+# must show: max |dt| over both-hit rays of the closest-hit query at least
+# SPLIT_T_FLOOR (a kernel that kept the f32 product fails here).
+F32_HIT_AGREE = 0.9999
+# A shadow ray that reaches its light hits the light at t = t_max up to
+# rounding, and the engine reads it as lit from t_max * (1 -
+# SHADOW_REL_EPS) on; near the lights the split's t error reaches
+# SHADOW_REL_EPS (hits at 0.998-0.999 t_max that the f32 product puts
+# beyond the threshold), so about 3e-4 of a shadow query's entries flip,
+# each within the split's error. Held to this share, under twice that.
+SHADOW_FLIPS = 5e-4
+SPLIT_T_FLOOR = 1e-6
+# The split's error per product term: x*y against hi_x*hi_y + lo_x*hi_y +
+# hi_x*lo_y, with hi = bf16(x) (|x - hi| <= 2^-8 |x|) and lo = bf16(x - hi)
+# (|x - hi - lo| <= 2^-16 |x|), is at most 3 * 2^-16 |x*y|; with the f32
+# sums' rounding, within 2^-14 |x*y|.
+SPLIT_TERM_ERR = 2.0 ** -14
 GRID_BAR = 2e-3  # the reference's grid-vs-jnp render bar: |d| <= a + a|ref|
 GRID_BAD_PIXELS = 0.002  # ... on all but this share of pixels
 STREAM_FRAME_LIMIT_S = 120.0  # the stream frame runs at 1024^2 within this
@@ -107,6 +137,11 @@ PEAK_BYTES = 3.35e12
 # dot products (40 multiplies + 36 adds), four sign multiplies, u + v and
 # |det| * T_MIN (compares and selects not counted).
 OPS_PER_TRI_TEST = 82
+# The same test in visit_mma.cuh's form: the four split products, 30 bf16
+# multiply-adds each, on the tensor cores, and the epilogue's 6 f32
+# operations (four sign multiplies, u + v, |det| * T_MIN) on the CUDA cores.
+TC_OPS_PER_TRI_TEST = 4 * 30 * 2
+EPILOGUE_OPS_PER_TRI_TEST = 6
 # f32 operations per BVH node visit of traverse_bvh.cu: two slab
 # differences and products per axis (12), their min and max (6), the
 # entry/exit reductions (4) and two compares (leaf triangle tests are not
@@ -224,6 +259,126 @@ def compare_hits(name, t_k, s_k, t_p, s_p, mats) -> float:
     return (t_k[hit_k] - t_p[hit_p]).abs().max().item()
 
 
+def compare_split(name, t_k, s_k, t_p, s_p, bound) -> tuple:
+    """A split kernel (K2, K3) against its plain version on the split
+    table: hit masks agree on at least SPLIT_HIT_AGREE of the entries and
+    t within SPLIT_T_ATOL (rtol 0) where both hit. A flip whose hit lies
+    within SPLIT_T_ATOL of the entry's t bound `bound` does not count: a
+    hit at t >= t_max may read as a miss, and a shadow ray that reaches its
+    light hits it at t = t_max up to rounding. Returns (mask flips, flips
+    at the bound, max |dt| over both-hit entries)."""
+    flip = (s_k >= 0) != (s_p >= 0)
+    t_hit = torch.where(s_k >= 0, t_k, t_p)
+    at_bound = int((flip & ((bound - t_hit).abs() <= SPLIT_T_ATOL)).sum())
+    flips = int(flip.sum()) - at_bound
+    check(1.0 - flips / max(flip.numel(), 1) >= SPLIT_HIT_AGREE,
+          f"{name}: {flips} of {flip.numel()} hit masks differ from the "
+          "split plain version's")
+    both = (s_k >= 0) & (s_p >= 0)
+    dt = (t_k - t_p)[both].abs().max().item() if both.any() else 0.0
+    check(dt <= SPLIT_T_ATOL, f"{name}: max |t - split plain t| {dt:.3g} "
+          f"above {SPLIT_T_ATOL}")
+    return flips, at_bound, dt
+
+
+def engine_reads(t, s, bound, shadow: bool) -> torch.Tensor:
+    """What the engine reads of a query's result: for a closest-hit query
+    its hit mask; for a shadow query whether the light is occluded, a hit
+    nearer than bound * (1 - SHADOW_REL_EPS) (engine/wavefront.py)."""
+    hit = s >= 0
+    return hit & (t < bound * (1.0 - C.SHADOW_REL_EPS)) if shadow else hit
+
+
+def split_explains(feat, rays, t_a, s_a, t_b, s_b) -> tuple:
+    """Whether the split's error explains why two products' results (t_a,
+    s_a) and (t_b, s_b) differ. Takes the triangle of the nearer hit and
+    its four quantities (det, u*det, v*det, t*det) in float64 from the f32
+    table `feat` and the entries' ray features `rays` (11, n), each with
+    its error bound (SPLIT_TERM_ERR times the sum of its terms' |.|).
+    Explained (a, b): (a) one of the visit's predicates (det > DET_EPS,
+    u >= 0, v >= 0, u + v <= det, t > T_MIN, in the sign-canonical form)
+    lies within its bound of 0, so the other product may drop the triangle
+    (a ray through a shared edge misses both triangles and reaches a
+    surface behind, or nothing); or (b) the other t (a hit's, or the
+    entry's bound on a miss) lies within twice that triangle's t error
+    bound. Returns the (n,) bool masks (a, b)."""
+    a_nearer = (s_a >= 0) & ((t_a <= t_b) | (s_b < 0))
+    slot = torch.where(a_nearer, s_a, s_b).long()
+    cid, row = slot // ic.CLUSTER_TRIS, slot % ic.CLUSTER_TRIS
+    quantity = torch.arange(4, device=slot.device)[:, None]
+    cols = cid * ic.CLUSTER_COLS + quantity * ic.CLUSTER_TRIS + row  # (4, n)
+    used = ic._FEAT_USED
+    terms = feat[:used, cols].double() * rays[:used, None, :].double()
+    sign = torch.where(terms[:, 0].sum(0) < 0, -1.0, 1.0)
+    adet, un, vn, tn = terms.sum(0) * sign
+    e_d, e_u, e_v, e_t = terms.abs().sum(0) * SPLIT_TERM_ERR
+    margin = torch.stack([
+        adet / e_d, (adet - C.DET_EPS) / e_d, un / e_u, vn / e_v,
+        (adet - un - vn) / (e_d + e_u + e_v),
+        (tn - adet * C.T_MIN) / (e_t + C.T_MIN * e_d),
+    ]).abs().min(0).values
+    t_err = (tn / adet).abs() * (e_t / tn.abs() + e_d / adet.abs())
+    at_predicate = margin <= 1.0
+    within_t = ~at_predicate & ((t_a - t_b).abs().double() <= 2.0 * t_err)
+    return at_predicate, within_t
+
+
+def compare_f32(name, t_k, s_k, t_f, s_f, mats, bound, shadow, feat,
+                rays) -> tuple:
+    """A split kernel (K2, K3) against the f32 product (the f32 visit on
+    the f32 table `feat`) at the reference's bar: what the engine reads
+    (engine_reads; `bound` the entries' t bounds) agrees on at least
+    F32_HIT_AGREE of the entries (a `shadow` query's on all but
+    SHADOW_FLIPS); where both hit, materials (mats[slot])
+    agree on at least MAT_AGREE; and every flip the engine reads and every
+    both-hit t outside T_RTOL / T_ATOL of the f32 t is explained by the
+    split's error (split_explains; `rays` the entries' ray features).
+    Returns (flips the engine reads, hit-mask flips, t outside the bar,
+    explained at a predicate, explained within t's error, max |dt| over
+    both-hit entries)."""
+    read_k = engine_reads(t_k, s_k, bound, shadow)
+    read_f = engine_reads(t_f, s_f, bound, shadow)
+    flip = read_k != read_f
+    flips = int(flip.sum())
+    share = SHADOW_FLIPS if shadow else 1.0 - F32_HIT_AGREE
+    if shadow and flips:
+        near = torch.where(read_k, t_k, t_f)[flip] / bound[flip]
+        print(f"[kernel] {name} query: {flips} shadow flips, the occluding "
+              f"hit at {near.min().item():.5f}-{near.max().item():.5f} of "
+              f"t_max, on the split side in {int(read_k[flip].sum())}")
+    check(flips <= share * flip.numel(), f"{name}: the engine reads {flips} "
+          f"of {flip.numel()} results otherwise than the f32 product's, "
+          f"above {share}")
+    both = (s_k >= 0) & (s_f >= 0)
+    dt = (t_k - t_f).abs()
+    far = both & (dt > T_ATOL + T_RTOL * t_f.abs())
+    odd = torch.nonzero(flip | far).flatten()
+    at_predicate, within_t = split_explains(
+        feat, rays[:, odd], t_k[odd], s_k[odd], t_f[odd], s_f[odd])
+    unexplained = odd[~(at_predicate | within_t)]
+    check(unexplained.numel() == 0, f"{name}: {unexplained.numel()} entries "
+          f"(flips the engine reads, or t outside rtol {T_RTOL} / atol "
+          f"{T_ATOL}) differ from the f32 product's beyond the split's "
+          f"error (entries {unexplained[:8].tolist()})")
+    if both.any():
+        agree = (mats[s_k[both].long()] == mats[s_f[both].long()]).float() \
+            .mean().item()
+        check(agree >= MAT_AGREE, f"{name}: material agreement {agree} with "
+              "the f32 product")
+    return (flips, int(((s_k >= 0) != (s_f >= 0)).sum()), int(far.sum()),
+            int(at_predicate.sum()), int(within_t.sum()),
+            dt[both].max().item() if both.any() else 0.0)
+
+
+def f32_line(counts) -> str:
+    """compare_f32's counts, summed over calls, as printed."""
+    flips, mask_flips, far, at_predicate, within_t, dt = counts
+    return (f"{flips} flips the engine reads ({mask_flips} hit-mask flips), "
+            f"t outside its bar on {far} entries, all explained by the "
+            f"split's error ({at_predicate} with a predicate within it, "
+            f"{within_t} within t's), t max abs diff {dt:.3g}")
+
+
 def new_totals() -> dict:
     return {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "bound_ms": 0.0,
             "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
@@ -251,11 +406,38 @@ def add_bound(out, n_bytes, n_ops, peak=PEAK_F32) -> float:
     return max(bytes_ms, ops_ms)
 
 
-def tri_test_ops(visits, rays_per_block) -> int:
-    """f32 operations of visits (per block) cluster visits of
+def tri_tests(visits, rays_per_block) -> int:
+    """(ray, triangle) tests of visits (per block) cluster visits of
     rays_per_block rays (a tensor or an int per block) x 128 triangles."""
     return int((visits.to(torch.int64) * rays_per_block).sum()) \
-        * ic.CLUSTER_TRIS * OPS_PER_TRI_TEST
+        * ic.CLUSTER_TRIS
+
+
+def split_ops_ms(tests) -> float:
+    """The least time of the operations of `tests` (ray, triangle) tests in
+    visit_mma.cuh's form: the split products at the bf16 tensor rate or the
+    epilogue at the f32 rate, whichever is longer."""
+    return max(tests * TC_OPS_PER_TRI_TEST / PEAK_BF16,
+               tests * EPILOGUE_OPS_PER_TRI_TEST / PEAK_F32) * 1e3
+
+
+def split_bytes(feat_split, visited) -> int:
+    """Bytes of the split table's clusters among the ids `visited`: each
+    distinct cluster read once, the clusters no block visits not at all."""
+    return int(torch.unique(visited).numel()) * nbytes(feat_split[0])
+
+
+def add_split_bound(out, n_bytes, tests) -> tuple:
+    """Adds one call of a split kernel (K2, K3) to out at its bound in
+    visit_mma.cuh's form; returns that bound and the same tests' bound in
+    visit.cuh's f32 form (82 f32 operations per test), in ms."""
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    ops_ms = split_ops_ms(tests)
+    out["bytes_ms"] += bytes_ms
+    out["ops_ms"] += ops_ms
+    out["bound_ms"] += max(bytes_ms, ops_ms)
+    return (max(bytes_ms, ops_ms),
+            max(bytes_ms, tests * OPS_PER_TRI_TEST / PEAK_F32 * 1e3))
 
 
 def phase_kernel_vs_plain(scene, cfg, device) -> dict:
@@ -277,9 +459,10 @@ def phase_kernel_vs_plain(scene, cfg, device) -> dict:
         check(ic.LAUNCHES == n0 + 1, "cluster_hit launched the kernel")
         t_p, s_p, v_p = ic.cluster_hit_plain(cand, count, tnear, rayf, feat)
         err = compare_hits(name, t_k, s_k, t_p, s_p, mats)
-        bound = add_bound(out, nbytes(cand, count, tnear, rayf, feat, t_k,
-                                      s_k, v_k),
-                          tri_test_ops(v_k, ic.RAY_BLOCK))
+        n_bytes = nbytes(cand, count, tnear, rayf, feat, t_k, s_k, v_k)
+        tests = tri_tests(v_k, ic.RAY_BLOCK)
+        bound = add_bound(out, n_bytes, tests * OPS_PER_TRI_TEST)
+        tc_bound = max(n_bytes / PEAK_BYTES * 1e3, split_ops_ms(tests))
         ms = cuda_ms(lambda: ic.cluster_hit(cand, count, tnear, rayf, feat),
                      20)
         plain_ms = cuda_ms(
@@ -290,7 +473,8 @@ def phase_kernel_vs_plain(scene, cfg, device) -> dict:
               f"{v_p.float().mean().item():.2f}; hit masks equal, t max abs "
               f"err {err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms")
+              f"{bound:.4f} ms (f32 form; the same tests in visit_mma.cuh's "
+              f"tensor-core form {tc_bound:.4f} ms)")
         add_totals(out, ms, plain_ms, err)
     return out
 
@@ -373,8 +557,11 @@ def record_pair_queries(scene, cfg, pixel_ids):
 
 
 def phase_pair_vs_plain(scene, cfg, device) -> dict:
-    feat = scene.geometry.cl_feat
-    mats = scene.geometry.cl_slot_nm[:, 3]
+    """K2 against its plain version on the split table (bar a) and against
+    the f32 product (bar b, and the split floor on the closest-hit query)
+    on stage A of the bounce-0 closest-hit and shadow queries."""
+    g = scene.geometry
+    mats = g.cl_slot_nm[:, 3]
     ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width,
                           device=device)[:CHECK_PIXELS]
     queries = record_pair_queries(scene, cfg, ids)
@@ -383,29 +570,43 @@ def phase_pair_vs_plain(scene, cfg, device) -> dict:
     out = new_totals()
     for name, (offsets, cand, pair_ray, rayf, pb) in zip(
             ("closest", "shadow"), queries):
-        args = (offsets, cand, pair_ray, rayf, feat, pb)
+        args = (offsets, cand, pair_ray, rayf, g.cl_feat_split, pb)
         n0 = ig.LAUNCHES
         t_k, s_k, v_k = ig.pair_hit(*args)
         torch.cuda.synchronize()
         check(ig.LAUNCHES == n0 + 1, "pair_hit launched the kernel")
         t_p, s_p, v_p = ig.pair_hit_plain(*args)
-        err = compare_hits(name, t_k, s_k, t_p, s_p, mats)
+        rays = rayf[:, pair_ray.long()]
+        bound = rays[ic.RAY_FEATS - 1]
+        flips_a, edge_a, err = compare_split(name, t_k, s_k, t_p, s_p, bound)
         check(torch.equal(v_k, v_p), f"{name}: visits per block differ")
+        t_f, s_f, _ = ig.pair_walk_plain(offsets, cand, pair_ray, rayf,
+                                         ic.cluster_major(g.cl_feat),
+                                         ic.visit_plain, pb)
+        b = compare_f32(name, t_k, s_k, t_f, s_f, mats, bound,
+                        name == "shadow", g.cl_feat, rays)
+        if name == "closest":
+            check(b[-1] >= SPLIT_T_FLOOR, f"{name}: max |t - f32 t| "
+                  f"{b[-1]:.3g} below {SPLIT_T_FLOOR}: the product was not "
+                  "split")
         P = pair_ray.shape[0]
         per_block = (P - pb * torch.arange(v_k.shape[0], device=device)
                      ).clamp(max=pb)
-        bound = add_bound(out, nbytes(*args[:5], t_k, s_k, v_k),
-                          tri_test_ops(v_k, per_block))
+        n_bytes = nbytes(*args[:4], t_k, s_k, v_k) + split_bytes(
+            g.cl_feat_split, cand[:int(offsets[-1])])
+        bound, f32_bound = add_split_bound(out, n_bytes,
+                                           tri_tests(v_k, per_block))
         ms = cuda_ms(lambda: ig.pair_hit(*args), 10)
         plain_ms = cuda_ms(lambda: ig.pair_hit_plain(*args), 1)
         print(f"[kernel] pair_hit {name} query, stage A: "
               f"{rayf.shape[1]} rays, {pair_ray.shape[0]} pairs in "
               f"{v_k.shape[0]} blocks of {pb}, {int((s_k >= 0).sum())} "
               f"hits, visits/block mean {v_k.float().mean().item():.2f} "
-              f"max {int(v_k.max())}; hit masks equal, t max abs err "
-              f"{err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms")
+              f"max {int(v_k.max())}; vs split plain: {flips_a} mask flips "
+              f"(+{edge_a} at the t bound), t max abs err {err:.3g}; vs f32 "
+              f"product: {f32_line(b)}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms (tensor-core form, "
+              f"{n_bytes / 1e6:.1f} MB; f32 form {f32_bound:.4f} ms)")
         add_totals(out, ms, plain_ms, err)
     return out
 
@@ -442,8 +643,10 @@ def record_stream_rounds(scene, cfg, pixel_ids, keep_inputs: bool):
 
 
 def phase_stream_vs_plain(scene, cfg, device) -> dict:
-    """K3 against its plain version on every round of the stream route's
-    bounce-0 closest-hit and shadow queries."""
+    """K3 against its plain version on the split table (bar a) and against
+    the f32 product (bar b, and the split floor on the closest-hit query)
+    on every round of the stream route's bounce-0 closest-hit and shadow
+    queries."""
     g = scene.geometry
     mats = g.cl_slot_nm[:, 3]
     ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width,
@@ -455,31 +658,54 @@ def phase_stream_vs_plain(scene, cfg, device) -> dict:
     out = new_totals()
     for name, q in zip(("closest", "shadow"), queries):
         check(len(q["inputs"]) > 0, f"stream {name} query ran no round")
-        ms = plain_ms = err = bound = 0.0
-        bit_equal = True
-        visits = []
+        ms = plain_ms = err = bound = f32_bound = 0.0
+        flips_a = [0, 0]  # vs split plain: mask flips, flips at the bound
+        b = [0, 0, 0, 0, 0, 0.0]  # vs f32: compare_f32's counts
+        visits, mb = [], 0.0
         for args in q["inputs"]:
             n0 = st.LAUNCHES
-            t_k, s_k, v_k = st.stream_hit(*args, g.cl_feat)
+            t_k, s_k, v_k = st.stream_hit(*args, g.cl_feat_split)
             torch.cuda.synchronize()
             check(st.LAUNCHES == n0 + 1, "stream_hit launched the kernel")
             t0 = time.perf_counter()
-            t_p, s_p, _ = st.stream_hit_plain(*args, g.cl_feat)
+            t_p, s_p, _ = st.stream_hit_plain(*args, g.cl_feat_split)
             torch.cuda.synchronize()
             plain_ms += (time.perf_counter() - t0) * 1e3
-            err = max(err, compare_hits(name, t_k, s_k, t_p, s_p, mats))
-            bit_equal = bit_equal and bool(torch.equal(t_k, t_p))
-            bound += add_bound(out, nbytes(*args, g.cl_feat, t_k, s_k, v_k),
-                               tri_test_ops(v_k, ic.RAY_BLOCK))
-            ms += cuda_ms(lambda: st.stream_hit(*args, g.cl_feat), 5)
+            cand, count, _, rayf, t_in, slot_in = args
+            t_max = rayf[ic.RAY_FEATS - 1]
+            *f, e = compare_split(name, t_k, s_k, t_p, s_p, t_max)
+            t_f, s_f = t_in.clone(), slot_in.clone()
+            ic.walk_candidates_plain(cand, count, rayf,
+                                     ic.cluster_major(g.cl_feat),
+                                     ic.visit_plain, t_f, s_f)
+            *f32, dt = compare_f32(name, t_k, s_k, t_f, s_f, mats, t_max,
+                                   name == "shadow", g.cl_feat, rayf)
+            flips_a = [x + y for x, y in zip(flips_a, f)]
+            b = [x + y for x, y in zip(b, f32)] + [max(b[-1], dt)]
+            err = max(err, e)
+            walked = torch.arange(cand.shape[1], device=device)[None, :] \
+                < v_k[:, None]
+            n_bytes = nbytes(*args, t_k, s_k, v_k) + split_bytes(
+                g.cl_feat_split, cand[walked])
+            r_bound, r_f32 = add_split_bound(out, n_bytes,
+                                             tri_tests(v_k, ic.RAY_BLOCK))
+            bound, f32_bound = bound + r_bound, f32_bound + r_f32
+            mb += n_bytes / 1e6
+            ms += cuda_ms(lambda: st.stream_hit(*args, g.cl_feat_split), 5)
             visits.append(int(v_k.sum()))
+        if name == "closest":
+            check(b[-1] >= SPLIT_T_FLOOR, f"stream {name}: max |t - f32 t| "
+                  f"{b[-1]:.3g} below {SPLIT_T_FLOOR}: the product was not "
+                  "split")
         B = q["inputs"][0][0].shape[0]
         print(f"[kernel] stream_hit {name} query: {q['rays']} rays in {B} "
               f"blocks, {len(q['inputs'])} rounds, visits per round "
-              f"{visits} (mean per block {sum(visits) / B:.2f}); hit masks "
-              f"equal, t max abs err {err:.3g}, t bit-equal {bit_equal}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms (all rounds)")
+              f"{visits} (mean per block {sum(visits) / B:.2f}); vs split "
+              f"plain: {flips_a[0]} mask flips (+{flips_a[1]} at the t "
+              f"bound), t max abs err {err:.3g}; vs f32 product: "
+              f"{f32_line(b)}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms (tensor-core form, {mb:.1f} MB; f32 "
+              f"form {f32_bound:.4f} ms; all rounds)")
         add_totals(out, ms, plain_ms, err)
     return out
 
@@ -653,9 +879,10 @@ def config5_scene(host, cfg, device):
           f"{ig.grid_axis(g)}, {n_clusters} clusters, "
           f"{(cs[1:] > cs[:-1]).float().mean().item():.4f} of cells "
           f"occupied, max {int((cs[1:] - cs[:-1]).max())} clusters per "
-          f"cell, feature table {g.cl_feat.numel() * 4 / 1e6:.1f} MB on the "
-          f"card; host build s: grid tables {t[1] - t[0]:.2f}, to card "
-          f"{t[2] - t[1]:.2f}")
+          f"cell, feature table {g.cl_feat.numel() * 4 / 1e6:.1f} MB and "
+          f"split table {nbytes(g.cl_feat_split) / 1e6:.1f} MB on the card; "
+          f"host build s: grid tables (split table included) "
+          f"{t[1] - t[0]:.2f}, to card {t[2] - t[1]:.2f}")
     return scene
 
 
@@ -711,8 +938,9 @@ def stream_scene(host, cfg, device):
     g = scene.geometry
     print(f"[main] config5 stream scene: {g.cl_lo.shape[0]} clusters, "
           f"{g.su_lo.shape[0]} supers, feature table "
-          f"{g.cl_feat.numel() * 4 / 1e6:.1f} MB on the card; host build s: "
-          f"cluster tables {t1 - t0:.2f}, to card "
+          f"{g.cl_feat.numel() * 4 / 1e6:.1f} MB and split table "
+          f"{nbytes(g.cl_feat_split) / 1e6:.1f} MB on the card; host build "
+          f"s: cluster tables (split table included) {t1 - t0:.2f}, to card "
           f"{time.perf_counter() - t1:.2f}")
     return scene
 

@@ -15,6 +15,11 @@ Per cluster the 512 columns are [det(128) | u(128) | v(128) | t(128)];
 padding slots have all-zero columns (det = 0, never hit). The table is kept
 in float32, (16, C*512), rows 10-15 zero. Clustering does not permute the
 caller's triangles: `cl_map` maps padded slots back to triangle ids.
+
+`split_table` packs the same columns once per scene for the tensor-core
+visit of the stream and pair kernels (ops/csrc/visit_mma.cuh): each used
+feature as its bf16 hi/lo error split (the reference's `split_bf16`), one
+cluster per contiguous 32 KB block.
 """
 
 from __future__ import annotations
@@ -31,6 +36,20 @@ FEAT_ROWS = 16  # feature-table rows (10 used)
 QUANTITIES = 4  # det, u_num, v_num, t_num
 CLUSTER_COLS = CLUSTER_TRIS * QUANTITIES  # feature columns per cluster
 SUPER_GROUP = 32  # clusters per super-cluster
+FEAT_USED = 10  # feature rows that pair with a ray's features
+# The split visit's product has depth SPLIT_K = 32: table rows
+# [hi(10); hi(10); lo(10); 0; 0] against ray rows [hi; lo; hi; 0; 0] give
+# hi*hi + lo*hi + hi*lo (the reference's three partial products, dropping
+# lo*lo) in two k-steps of mma.m16n8k16 instead of the three that the
+# reference's 16-row stacks (K = 48) would take.
+SPLIT_K = 32
+# Storage order of a column's 32 k values: a column is 16 words of two bf16
+# (the lower k in the low half), and word slot 4t + j holds k pair
+# 2t + 8j, so lane t of an mma quad reads its four B registers (k pairs 2t,
+# 2t + 8, 2t + 16, 2t + 24) as one 16-byte load. SPLIT_PERM[p] is the k
+# value at position p.
+SPLIT_PERM = tuple(2 * ((p // 2) // 4 + 4 * ((p // 2) % 4)) + p % 2
+                   for p in range(SPLIT_K))
 
 
 @dataclasses.dataclass
@@ -41,15 +60,50 @@ class ClusterSet:
     tri_map: np.ndarray  # (C*128,) i32 padded slot -> original tri (-1 pad)
 
 
+def split_bf16(x: torch.Tensor):
+    """bf16 hi/lo error split, x ~= hi + lo: round-to-nearest-even casts,
+    as the reference's split_bf16 (ops/intersect_cluster.py)."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
+    return hi, lo
+
+
 def stack_feat_bf16(feat32: torch.Tensor) -> torch.Tensor:
     """(16, N) f32 table -> the reference's (48, N) bf16 [hi; hi; lo] stack.
 
     Round-to-nearest-even casts, as the reference's stack_feat; used only to
     hold the port's table against the reference's bit for bit.
     """
-    hi = feat32.to(torch.bfloat16)
-    lo = (feat32 - hi.to(torch.float32)).to(torch.bfloat16)
+    hi, lo = split_bf16(feat32)
     return torch.cat([hi, hi, lo], dim=0)
+
+
+def split_table(feat32) -> torch.Tensor:
+    """(16, C*512) f32 table -> (C, 512, 32) bf16 split columns.
+
+    Column j of cluster c holds the table side of the split product, k
+    order [hi(10); hi(10); lo(10); 0; 0] of the used rows, stored in
+    SPLIT_PERM order: one cluster is one contiguous 32 KB block, the unit
+    of the kernels' bulk copy.
+    """
+    f = torch.as_tensor(feat32)[:FEAT_USED]
+    n_cols = f.shape[1]
+    hi, lo = split_bf16(f)
+    by_k = {k: hi[k % FEAT_USED] for k in range(2 * FEAT_USED)}
+    by_k.update({2 * FEAT_USED + i: lo[i] for i in range(FEAT_USED)})
+    out = torch.zeros((n_cols, SPLIT_K), dtype=torch.bfloat16)
+    for p, k in enumerate(SPLIT_PERM):
+        if k in by_k:
+            out[:, p] = by_k[k]
+    return out.reshape(n_cols // CLUSTER_COLS, CLUSTER_COLS, SPLIT_K)
+
+
+def unsplit_columns(split: torch.Tensor) -> torch.Tensor:
+    """(..., 32) split columns -> the same in k order (SPLIT_PERM undone)."""
+    inv = [0] * SPLIT_K
+    for p, k in enumerate(SPLIT_PERM):
+        inv[k] = p
+    return split[..., inv]
 
 
 def _median_split_clusters(tri_lo, tri_hi, max_tris: int) -> list[np.ndarray]:
@@ -205,6 +259,7 @@ def with_clusters(scene: Scene, max_tris: int = CLUSTER_TRIS,
     su_lo, su_hi, cl_super = build_supers(cs.lo, cs.hi, super_group)
     g2 = g.replace(
         cl_lo=cs.lo, cl_hi=cs.hi, cl_feat=cs.feat, cl_map=cs.tri_map,
+        cl_feat_split=split_table(cs.feat),
         su_lo=su_lo, su_hi=su_hi, cl_super=cl_super,
         cl_slot_nm=slot_nm_table(cs.tri_map, g.tri_n.cpu().numpy(),
                                  g.tri_mat.cpu().numpy()),

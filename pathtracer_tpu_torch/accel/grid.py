@@ -17,7 +17,13 @@ import dataclasses
 import numpy as np
 
 from ..scene.model import Scene
-from .clusters import CLUSTER_TRIS, FEAT_ROWS, cluster_tables, slot_nm_table
+from .clusters import (
+    CLUSTER_TRIS,
+    FEAT_ROWS,
+    cluster_tables,
+    slot_nm_table,
+    split_table,
+)
 
 # Inflation of triangle AABBs when assigning to cells, relative to the cell
 # size: a hit point within fp error of a cell boundary must find its
@@ -171,6 +177,7 @@ def with_grid(scene: Scene, axis: int | None = None) -> Scene:
                     g.tri_e2.cpu().numpy(), axis)
     g2 = g.replace(
         cl_lo=gs.lo, cl_hi=gs.hi, cl_feat=gs.feat, cl_map=gs.tri_map,
+        cl_feat_split=split_table(gs.feat),
         gr_cell_start=gs.cell_start, gr_lo=gs.grid_lo, gr_cell=gs.cell_size,
         cl_slot_nm=slot_nm_table(gs.tri_map, g.tri_n.cpu().numpy(),
                                  g.tri_mat.cpu().numpy()),

@@ -1,9 +1,8 @@
-// One cluster visit, shared by the cluster kernel (intersect_cluster.cu), the
-// stream kernel (intersect_stream.cu) and the pair kernel
-// (intersect_pair.cu): stage a cluster's feature columns in shared memory,
-// then test its 128 triangles against one ray; and the ordered walk of a
-// block's near-first candidate list that the cluster and stream kernels
-// share.
+// The cluster kernel's visit (intersect_cluster.cu): stage a cluster's f32
+// feature columns in shared memory, then test its 128 triangles against one
+// ray; and the ordered walk of a block's near-first candidate list. Its
+// constants and per-triangle predicate are also those of the stream and
+// pair kernels' tensor-core visit (visit_mma.cuh).
 //
 // Per (ray, triangle) the feature algebra of accel/clusters.py gives det,
 // u*det, v*det and t*det as dot products of the ray's 10 feature rows with

@@ -27,7 +27,14 @@ import ctypes
 import torch
 
 from .. import constants as C
-from ..accel.clusters import CLUSTER_COLS, CLUSTER_TRIS, FEAT_ROWS
+from ..accel.clusters import (
+    CLUSTER_COLS,
+    CLUSTER_TRIS,
+    FEAT_ROWS,
+    SPLIT_K,
+    split_bf16,
+    unsplit_columns,
+)
 from ..engine.intersect import merge_spheres
 from . import _build
 from .boundary import no_gradient
@@ -221,7 +228,9 @@ def cull_candidates(cl_lo, cl_hi, o, d, t_max=None, extra_mask=None):
     return cand.contiguous(), count, tnear.contiguous()
 
 
-def _check_hit_inputs(cand, count, tnear, rayf, feat):
+def _check_hit_inputs(cand, count, tnear, rayf, feat, split: bool = False):
+    """Raises ValueError on malformed inputs; `split` names the table the
+    caller takes (check_table)."""
     if cand.dim() != 2:
         raise ValueError(f"cand must be (B, K); got {tuple(cand.shape)}")
     B, K = cand.shape
@@ -235,11 +244,7 @@ def _check_hit_inputs(cand, count, tnear, rayf, feat):
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {shape}; got "
                              f"{x.dtype} {tuple(x.shape)}")
-    if (feat.dtype != torch.float32 or feat.dim() != 2
-            or feat.shape[0] != FEAT_ROWS or feat.shape[1] == 0
-            or feat.shape[1] % CLUSTER_COLS):
-        raise ValueError("feat must be float32 (16, C*512) with C >= 1; got "
-                         f"{feat.dtype} {tuple(feat.shape)}")
+    check_table(feat, split)
     for name, x in (("cand", cand), ("count", count), ("tnear", tnear),
                     ("rayf", rayf), ("feat", feat)):
         if x.device != rayf.device:
@@ -272,24 +277,26 @@ def cluster_hit_plain(cand, count, tnear, rayf, feat,
     _check_hit_inputs(cand, count, tnear, rayf, feat)
     t_best = rayf[_FEAT_USED].clone()
     best = torch.full_like(t_best, -1, dtype=torch.int32)
-    visits = walk_candidates_plain(cand, count, rayf, feat, t_best, best,
-                                   chunk_blocks)
+    visits = walk_candidates_plain(cand, count, rayf, cluster_major(feat),
+                                   visit_plain, t_best, best, chunk_blocks)
     return t_best, best, visits
 
 
-def walk_candidates_plain(cand, count, rayf, feat, t_best, best,
+def walk_candidates_plain(cand, count, rayf, by_cluster, visit, t_best, best,
                           chunk_blocks: int = 256) -> torch.Tensor:
     """Every valid candidate of every block, in order, with no early exit:
     updates the (R,) t_best (f32) and best (i32) in place and returns the
     (B,) i32 clusters tested per block (count clamped to K). Only blocks
-    with candidates are computed, `chunk_blocks` at a time."""
+    with candidates are computed, `chunk_blocks` at a time. `visit` tests
+    a cluster of `by_cluster`, the table indexed by cluster id that it
+    takes: visit_plain on cluster_major(f32 table), visit_split_plain on
+    the split table."""
     B, K = cand.shape
     n_cand = torch.clamp(count, min=0, max=K).to(torch.int64)
     rays = rayf[:_FEAT_USED].T.reshape(B, RAY_BLOCK, _FEAT_USED)
     t_blk = t_best.view(B, RAY_BLOCK)
     best_blk = best.view(B, RAY_BLOCK)
-    n_clusters = feat.shape[1] // CLUSTER_COLS
-    feat_c = cluster_major(feat)
+    n_clusters = by_cluster.shape[0]
     busy = torch.nonzero(n_cand > 0).flatten()
     for c0 in range(0, busy.shape[0], chunk_blocks):
         ib = busy[c0:c0 + chunk_blocks]
@@ -299,7 +306,7 @@ def walk_candidates_plain(cand, count, rayf, feat, t_best, best,
         bs = best_blk[ib]
         for k in range(int(nc.max())):
             cid = torch.clamp(cand[ib, k].to(torch.int64), 0, n_clusters - 1)
-            visit_plain(r, feat_c[cid], cid, k < nc, tb, bs)
+            visit(r, by_cluster[cid], cid, k < nc, tb, bs)
         t_blk[ib] = tb
         best_blk[ib] = bs
     return n_cand.to(torch.int32)
@@ -312,9 +319,34 @@ def cluster_major(feat: torch.Tensor) -> torch.Tensor:
                                      CLUSTER_COLS).permute(1, 0, 2)
 
 
+def check_table(feat: torch.Tensor, split: bool) -> None:
+    """Raises ValueError unless feat is the (C, 512, 32) bf16 split table
+    (split) or the (16, C*512) f32 table (not split), C >= 1."""
+    if split:
+        ok = (feat.dtype == torch.bfloat16 and feat.dim() == 3
+              and feat.shape[0] > 0
+              and tuple(feat.shape[1:]) == (CLUSTER_COLS, SPLIT_K))
+        want = f"bfloat16 (C, {CLUSTER_COLS}, {SPLIT_K}) split"
+    else:
+        ok = (feat.dtype == torch.float32 and feat.dim() == 2
+              and feat.shape[0] == FEAT_ROWS and feat.shape[1] > 0
+              and feat.shape[1] % CLUSTER_COLS == 0)
+        want = f"float32 ({FEAT_ROWS}, C*{CLUSTER_COLS})"
+    if not ok:
+        raise ValueError(f"feat must be the {want} table with C >= 1; got "
+                         f"{feat.dtype} {tuple(feat.shape)}")
+
+
+def check_bulk_aligned(feat: torch.Tensor) -> None:
+    """The split kernels bulk-copy a cluster's 32 KB block from the table:
+    its start must be 16-byte aligned (every torch allocation is)."""
+    if feat.data_ptr() % 16:
+        raise ValueError("the split table must start 16-byte aligned")
+
+
 def visit_plain(r, f, cid, enabled, t_best, best) -> None:
     """One cluster visit per block, in place: the plain version of the
-    per-triangle test the CUDA kernels share (csrc/visit.cuh).
+    per-triangle test of the cluster kernel (csrc/visit.cuh).
 
     r: (Bc, L, 10) ray features of each block's L lanes; f: (Bc, 10, 512)
     the visited cluster's columns; cid: (Bc,) its id; enabled: (Bc,) bool.
@@ -323,10 +355,56 @@ def visit_plain(r, f, cid, enabled, t_best, best) -> None:
     at a time in the kernel's order, and there is no matrix product, so
     TF32 never applies: on the card both give the same bits.
     """
-    n = CLUSTER_TRIS
     q = r[:, :, 0, None] * f[:, None, 0, :]  # (Bc, L, 512)
     for i in range(1, _FEAT_USED):
         q = q + r[:, :, i, None] * f[:, None, i, :]
+    visit_epilogue(q, cid, enabled, t_best, best)
+
+
+def stack_rays_split(r: torch.Tensor) -> torch.Tensor:
+    """(..., 10) f32 ray features -> (..., 32) ray side of the split product
+    in k order: [hi(10); lo(10); hi(10); 0; 0] (see accel/clusters.py:
+    SPLIT_K), as bf16 values."""
+    hi, lo = split_bf16(r)
+    pad = torch.zeros(r.shape[:-1] + (SPLIT_K - 3 * _FEAT_USED,),
+                      dtype=torch.bfloat16, device=r.device)
+    return torch.cat([hi, lo, hi, pad], dim=-1)
+
+
+def visit_split_plain(r, s, cid, enabled, t_best, best) -> None:
+    """One cluster visit per block, in place, with the bf16 hi/lo split
+    product (split_product): the plain version of the stream and pair
+    kernels' visit (csrc/visit_mma.cuh) and of the reference's visit_q +
+    visit_epilogue, without its 127-ulp t encoding.
+
+    r: (Bc, L, 10) f32 ray features; s: (Bc, 512, 32) the visited
+    cluster's split columns (accel/clusters.py:split_table); the rest, the
+    epilogue and the tie rule as visit_plain.
+    """
+    visit_epilogue(split_product(r, s), cid, enabled, t_best, best)
+
+
+def split_product(r, s) -> torch.Tensor:
+    """(Bc, L, 10) f32 rays x (Bc, 512, 32) split columns -> (Bc, L, 512)
+    q: per (ray, column) the sum over k of a_k * b_k, the ray side [hi; lo;
+    hi] against the table side [hi; hi; lo]. Each product of two bf16 is
+    exact in f32, and the 30 products are summed in k order, one rounding
+    per term: the reference's visit_q as it runs on the CPU, bit for bit.
+    The kernel's tensor cores sum each k-step in their own order."""
+    a = stack_rays_split(r).to(torch.float32)  # (Bc, L, 32)
+    b = unsplit_columns(s).to(torch.float32).transpose(1, 2).contiguous()
+    q = a[:, :, 0, None] * b[:, None, 0, :]  # (Bc, L, 512)
+    for k in range(1, 3 * _FEAT_USED):
+        q.addcmul_(a[:, :, k, None], b[:, None, k, :])
+    return q
+
+
+def visit_epilogue(q, cid, enabled, t_best, best) -> None:
+    """The sign-canonical multiply-form Moller-Trumbore predicate on q
+    (Bc, L, 512) = [det | u*det | v*det | t*det] of one cluster, the
+    division, and a strict-less update of (t_best, best) in place (ties
+    keep the lower row, then the earlier visit)."""
+    n = CLUSTER_TRIS
     s = torch.where(q[:, :, 0:n] < 0.0, -1.0, 1.0)
     adet = q[:, :, 0:n] * s
     un = q[:, :, n:2 * n] * s

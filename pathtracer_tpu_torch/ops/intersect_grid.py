@@ -14,8 +14,11 @@ The reference's ``ops/intersect_grid.py`` in two parts:
 
   fine test (`pair_hit`): per block of pairs, every cluster of the block's
       candidate list is tested against every pair of the block, with no
-      early exit. On a CUDA tensor this launches the hand-written kernel in
-      ``csrc/intersect_pair.cu``; on a CPU tensor it runs `pair_hit_plain`.
+      early exit, on the split table (``Geometry.cl_feat_split``): each
+      visit's product is the reference's bf16 hi/lo split, as its kernel
+      computes it. On a CUDA tensor this launches the hand-written kernel
+      in ``csrc/intersect_pair.cu``; on a CPU tensor it runs
+      `pair_hit_plain`.
 
 Where the reference is shaped by jit and the TPU, the port is eager: the
 DDA scan is a Python loop over 3*axis steps; phases drop the pairs of cells
@@ -44,17 +47,17 @@ import ctypes
 import torch
 
 from .. import constants as C
-from ..accel.clusters import CLUSTER_COLS, FEAT_ROWS
 from ..engine.intersect import merge_spheres
 from . import _build
 from .boundary import no_gradient
 from .intersect_cluster import (
     RAY_FEATS,
     _FEAT_USED,
-    cluster_major,
+    check_bulk_aligned,
+    check_table,
     decode_winner,
     ray_features,
-    visit_plain,
+    visit_split_plain,
 )
 
 # Entry distance of invalid DDA steps (finite, far above any real t).
@@ -67,8 +70,8 @@ _ENTRY_ABS = 1e-6
 # full-width first phase (stage A). Both are performance knobs.
 PHASE_STEPS = 4
 FIRST_STEPS = 4
-# Pairs per kernel block = threads per CUDA block (one thread per pair),
-# a multiple of 32 up to 512. pair_candidates and the kernel wrappers take
+# Pairs per kernel block (the kernel gives each 64 pairs a warp), a
+# multiple of 32 up to 512. pair_candidates and the kernel wrappers take
 # PAIR_BLOCK by default; closest_hit_grid adapts the width per phase
 # (_auto_pair_block). The reference's (1024,) ladder was measured on its
 # TPU; these widths are the port's choice, not yet tuned on the H100.
@@ -256,6 +259,7 @@ def pair_candidates(cell_s: torch.Tensor, cell_start: torch.Tensor,
 
 
 def _check_pair_inputs(offsets, cand, pair_ray, rayf, feat, pair_block):
+    """Raises ValueError on malformed inputs; feat is the split table."""
     if not (_MIN_PAIR_BLOCK <= pair_block <= _MAX_PAIR_BLOCK
             and pair_block % 32 == 0):
         raise ValueError(f"pair_block must be a multiple of 32 in "
@@ -275,11 +279,7 @@ def _check_pair_inputs(offsets, cand, pair_ray, rayf, feat, pair_block):
     if rayf.shape[0] != RAY_FEATS or (P and rayf.shape[1] == 0):
         raise ValueError(f"rayf must be ({RAY_FEATS}, R) with R >= 1; got "
                          f"{tuple(rayf.shape)}")
-    if (feat.dtype != torch.float32 or feat.dim() != 2
-            or feat.shape[0] != FEAT_ROWS or feat.shape[1] == 0
-            or feat.shape[1] % CLUSTER_COLS):
-        raise ValueError("feat must be float32 (16, C*512) with C >= 1; got "
-                         f"{feat.dtype} {tuple(feat.shape)}")
+    check_table(feat, split=True)
     for name, x in (("offsets", offsets), ("cand", cand),
                     ("pair_ray", pair_ray), ("rayf", rayf), ("feat", feat)):
         if x.device != rayf.device:
@@ -300,26 +300,35 @@ def pair_hit_plain(offsets, cand, pair_ray, rayf, feat,
       pair_ray: (P,) i32 column of each pair's ray in rayf.
       rayf: (11, R) f32 per-ray features; row 10 is each ray's current best
         t, the pair's initial bound.
-      feat: (16, C*512) f32 cluster feature table.
+      feat: (C, 512, 32) bf16 split table: each visit is the split product
+        (intersect_cluster.visit_split_plain).
 
     Returns (t, slot, visits): (P,) f32 best t per pair (row 10 of its ray
     where nothing nearer), (P,) i32 winning padded slot cid*128 + row or -1,
     (Bp,) i32 clusters tested per block. Every pair of a block tests every
     cluster of the block's list; ties keep the lower row, then the earlier
-    visit; the per-triangle arithmetic is cluster_hit_plain's.
+    visit.
     """
     _check_pair_inputs(offsets, cand, pair_ray, rayf, feat, pair_block)
+    return pair_walk_plain(offsets, cand, pair_ray, rayf, feat,
+                           visit_split_plain, pair_block, chunk_blocks)
+
+
+def pair_walk_plain(offsets, cand, pair_ray, rayf, by_cluster, visit,
+                    pair_block: int = PAIR_BLOCK, chunk_blocks: int = 256):
+    """pair_hit_plain's walk with the visit `visit` over `by_cluster`, the
+    table indexed by cluster id that it takes (see
+    intersect_cluster.walk_candidates_plain); inputs are not checked."""
     dev = rayf.device
     P = pair_ray.shape[0]
     Bp = offsets.shape[0] - 1
-    n_clusters = feat.shape[1] // CLUSTER_COLS
+    n_clusters = by_cluster.shape[0]
     count = (offsets[1:] - offsets[:-1]).to(torch.int64)
     ray = torch.clamp(pair_ray.to(torch.int64), 0, rayf.shape[1] - 1)
     ray = torch.cat([ray, ray.new_zeros((Bp * pair_block - P,))])
     rays = rayf[:_FEAT_USED, ray].T.reshape(Bp, pair_block, _FEAT_USED)
     t_best = rayf[_FEAT_USED, ray].reshape(Bp, pair_block).clone()
     best = torch.full((Bp, pair_block), -1, dtype=torch.int32, device=dev)
-    feat_c = cluster_major(feat)
     start = offsets[:-1].to(torch.int64)
     last = max(cand.shape[0] - 1, 0)
     for b0 in range(0, Bp, chunk_blocks):
@@ -328,8 +337,8 @@ def pair_hit_plain(offsets, cand, pair_ray, rayf, feat,
         for k in range(int(nc.max())):
             pos = torch.clamp(start[b0:b1] + k, max=last)
             cid = torch.clamp(cand[pos].to(torch.int64), 0, n_clusters - 1)
-            visit_plain(rays[b0:b1], feat_c[cid], cid, k < nc,
-                        t_best[b0:b1], best[b0:b1])
+            visit(rays[b0:b1], by_cluster[cid], cid, k < nc, t_best[b0:b1],
+                  best[b0:b1])
     return (t_best.reshape(-1)[:P], best.reshape(-1)[:P],
             count.to(torch.int32))
 
@@ -345,11 +354,12 @@ def _kernel():
 def pair_hit(offsets, cand, pair_ray, rayf, feat,
              pair_block: int = PAIR_BLOCK):
     """Closest hit of every (ray, cell) pair over its block's candidate
-    list (see pair_hit_plain).
+    list (see pair_hit_plain), on the split table `feat`
+    (Geometry.cl_feat_split).
 
     CPU tensors run the plain version. CUDA tensors launch the CUDA kernel
-    (built at first use) on the current stream, one block of `pair_block`
-    threads per pair block, and count the launch in LAUNCHES; a failed
+    (built at first use) on the current stream, one CTA of a warp per 64
+    pairs per pair block, and count the launch in LAUNCHES; a failed
     launch raises.
     An autograd boundary (ops/boundary.py): no gradient flows back.
     """
@@ -373,13 +383,14 @@ def _pair_hit(offsets, cand, pair_ray, rayf, feat,
     visits = torch.empty((Bp,), dtype=torch.int32, device=dev)
     if Bp == 0:
         return t, slot, visits
+    check_bulk_aligned(feat)
     launch = _kernel()
     with torch.cuda.device(dev):
         err = launch(
             offsets.data_ptr(), cand.data_ptr(), pair_ray.data_ptr(),
             rayf.data_ptr(), feat.data_ptr(), t.data_ptr(), slot.data_ptr(),
-            visits.data_ptr(), Bp, pair_block, P,
-            feat.shape[1] // CLUSTER_COLS, rayf.shape[1],
+            visits.data_ptr(), Bp, pair_block, P, feat.shape[0],
+            rayf.shape[1],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -496,8 +507,8 @@ def closest_hit_grid(geom, o, d, t_max=None,
     n_cells = axis ** 3
     grid_lo, grid_cell = geom.gr_lo, geom.gr_cell
     cell_start = geom.gr_cell_start
-    feat = geom.cl_feat
-    n_clusters = feat.shape[1] // CLUSTER_COLS
+    feat = geom.cl_feat_split
+    n_clusters = feat.shape[0]
     t_cap = (torch.full((R,), C.T_FAR, dtype=torch.float32, device=dev)
              if t_max is None else t_max.to(torch.float32))
     # Row 10 carries each ray's current best t: the pair kernel's initial

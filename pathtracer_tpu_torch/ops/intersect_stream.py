@@ -19,13 +19,17 @@ parts:
       culled cluster.
 
   fine test (``stream_hit``): one round for every block, continuing from
-      the carried-in best t and slot with the ordered early exit. On a CUDA
+      the carried-in best t and slot with the ordered early exit, on the
+      split table (``Geometry.cl_feat_split``): each visit's product is the
+      reference's bf16 hi/lo split, as its kernel computes it. On a CUDA
       tensor it launches the hand-written kernel in
       ``csrc/intersect_stream.cu``; on a CPU tensor it runs
       ``stream_hit_plain``, which tests every windowed candidate.
 
 Contract: that of intersect_cluster.closest_hit_cluster, (t, n_geom, mat)
-with t == T_FAR on a miss and the optional per-ray t_max bound.
+with t == T_FAR on a miss and the optional per-ray t_max bound, at the
+reference's split-product tolerance: t may differ from the f32 cluster
+route's in the last bits.
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ import ctypes
 import torch
 
 from .. import constants as C
-from ..accel.clusters import CLUSTER_COLS
 from ..engine.intersect import merge_spheres
 from . import _build
 from .boundary import no_gradient
@@ -43,11 +46,13 @@ from .intersect_cluster import (
     RAY_BLOCK,
     _check_hit_inputs,
     _pad_rays,
+    check_bulk_aligned,
     cull_candidates,
     decode_winner,
     exit_bound,
     ray_features,
     ray_super_mask,
+    visit_split_plain,
     walk_candidates_plain,
 )
 
@@ -60,7 +65,7 @@ LAUNCHES = 0
 
 
 def _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat):
-    _check_hit_inputs(cand, count, tnear, rayf, feat)
+    _check_hit_inputs(cand, count, tnear, rayf, feat, split=True)
     R = rayf.shape[1]
     for name, x, dtype in (("t_in", t_in, torch.float32),
                            ("slot_in", slot_in, torch.int32)):
@@ -84,7 +89,8 @@ def stream_hit_plain(cand, count, tnear, rayf, t_in, slot_in, feat):
         cannot change the result).
       rayf: (11, R) f32 ray features, R = 512 * B.
       t_in, slot_in: (R,) f32 / i32 carried best t and padded slot.
-      feat: (16, C*512) f32 cluster feature table.
+      feat: (C, 512, 32) bf16 split table: each visit is the split product
+        (intersect_cluster.visit_split_plain).
 
     Returns (t, slot, visits): the new (R,) best t and slot (strictly
     nearer hits only; ties keep the lower row, then the earlier visit) and
@@ -93,7 +99,8 @@ def stream_hit_plain(cand, count, tnear, rayf, t_in, slot_in, feat):
     _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat)
     t = t_in.clone()
     slot = slot_in.clone()
-    visits = walk_candidates_plain(cand, count, rayf, feat, t, slot)
+    visits = walk_candidates_plain(cand, count, rayf, feat, visit_split_plain,
+                                   t, slot)
     return t, slot, visits
 
 
@@ -106,7 +113,8 @@ def _kernel():
 
 
 def stream_hit(cand, count, tnear, rayf, t_in, slot_in, feat):
-    """One round of every block's walk (see stream_hit_plain).
+    """One round of every block's walk (see stream_hit_plain) on the split
+    table `feat` (Geometry.cl_feat_split).
 
     CPU tensors run the plain version. CUDA tensors launch the CUDA kernel
     (built at first use) on the current stream, with the ordered early
@@ -134,13 +142,14 @@ def _stream_hit(cand, count, tnear, rayf, t_in, slot_in, feat):
     visits = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return t, slot, visits
+    check_bulk_aligned(feat)
     launch = _kernel()
     with torch.cuda.device(dev):
         err = launch(
             cand.data_ptr(), count.data_ptr(), tnear.data_ptr(),
             rayf.data_ptr(), t_in.data_ptr(), slot_in.data_ptr(),
             feat.data_ptr(), t.data_ptr(), slot.data_ptr(), visits.data_ptr(),
-            B, K, feat.shape[1] // CLUSTER_COLS, R,
+            B, K, feat.shape[0], R,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -197,7 +206,7 @@ def closest_hit_stream(geom, o, d, max_cand: int = ROUND_CAND, t_max=None):
         t_cur, slot_cur, _ = stream_hit(
             cand[:, start:start + K].contiguous(), cnt_r.to(torch.int32),
             tnear[:, start:start + K].contiguous(), rayf, t_cur, slot_cur,
-            geom.cl_feat)
+            geom.cl_feat_split)
         cap = tnear[:, start + K]
         worst = t_cur.view(B, RAY_BLOCK).max(dim=1).values
         resolved = resolved | (worst <= cap) | (count <= start + K)

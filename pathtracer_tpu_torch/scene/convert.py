@@ -10,8 +10,9 @@ The reference stores its cluster feature table as a bf16 ``[hi; hi; lo]``
 stack (48 rows). The port keeps the float32 table it was rounded from: it
 is rebuilt here from the carried triangles and ``cl_map``, and its bf16
 stack must equal the carried table bit for bit, or the conversion raises.
-The port's own packed BVH tables (``bvh_nodes``, ``bvh_tris``) are derived
-from the carried BVH and triangle arrays.
+The port's own packed tables are derived: ``bvh_nodes`` and ``bvh_tris``
+from the carried BVH and triangle arrays, ``cl_feat_split`` from the
+rebuilt feature table.
 """
 
 from __future__ import annotations
@@ -21,7 +22,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..accel.clusters import CLUSTER_TRIS, cluster_tables, stack_feat_bf16
+from ..accel.clusters import (
+    CLUSTER_TRIS,
+    cluster_tables,
+    split_table,
+    stack_feat_bf16,
+)
 from ..ops.traverse_bvh import pack_tables
 from .model import Camera, Geometry, Lights, Materials, Scene, _tensors
 
@@ -31,7 +37,9 @@ def _part(cls, arrays: dict):
     missing = set(names) - set(arrays)
     if missing:
         raise KeyError(f"{cls.__name__} arrays lack {sorted(missing)}")
-    return cls(**_tensors({n: np.asarray(arrays[n]) for n in names}))
+    return cls(**_tensors({
+        n: arrays[n] if isinstance(arrays[n], torch.Tensor)
+        else np.asarray(arrays[n]) for n in names}))
 
 
 def _feat_from_carried(geometry: dict) -> np.ndarray:
@@ -62,6 +70,7 @@ def scene_from_arrays(geometry: dict, materials: dict, camera: dict,
     docstring); raises if the carried feature table does not match."""
     geometry = dict(geometry)
     geometry["cl_feat"] = _feat_from_carried(geometry)
+    geometry["cl_feat_split"] = split_table(geometry["cl_feat"])
     geometry["bvh_nodes"], geometry["bvh_tris"] = pack_tables(
         *(geometry[k] for k in ("bvh_lo", "bvh_hi", "bvh_first", "bvh_count",
                                 "bvh_skip", "tri_v0", "tri_e1", "tri_e2")))

@@ -222,15 +222,16 @@ def test_pair_candidates_are_the_blocks_cells(mesh_pair, pair_inputs,
 
 
 def test_pair_hit_plain_matches_reference_kernel(mesh_pair, pair_inputs):
-    """pair_hit_plain against the reference's _pair_pallas (interpret) on
-    the same blocks' candidate lists: equal hit masks, t at the bar,
-    materials through cl_slot_nm on >= 0.999 of hits."""
+    """pair_hit_plain on the split table (the kernel's function) against
+    the reference's _pair_pallas (interpret) on the same blocks' candidate
+    lists: equal hit masks, t at the bar, materials through cl_slot_nm on
+    >= 0.999 of hits."""
     ref_g, g = mesh_pair
     o, d, cell_s, pair_ray, rayf = pair_inputs
     PB = ig.PAIR_BLOCK
     offsets, cand = ig.pair_candidates(cell_s, g.gr_cell_start, PB)
     t_p, slot_p, vis_p = ig.pair_hit_plain(offsets, cand, pair_ray, rayf,
-                                           g.cl_feat)
+                                           g.cl_feat_split)
     P = pair_ray.shape[0]
     Bp = offsets.shape[0] - 1
     count = (offsets[1:] - offsets[:-1]).numpy()
@@ -264,14 +265,25 @@ def test_pair_hit_plain_matches_reference_kernel(mesh_pair, pair_inputs):
 
 def test_pair_hit_plain_matches_brute(mesh_pair, pair_inputs):
     """Each pair's t is the brute-force min over the triangles of its
-    block's candidate clusters, at any block width; a miss keeps its ray's
-    bound and slot -1."""
+    block's candidate clusters, at any block width, with the split product
+    as with the f32 one (the reference's split kernel passes this too); a
+    miss keeps its ray's bound and slot -1."""
     _, g = mesh_pair
     o, d, cell_s, pair_ray, rayf = pair_inputs
     PB = 128
     offsets, cand = ig.pair_candidates(cell_s, g.gr_cell_start, PB)
-    t_p, slot_p, _ = ig.pair_hit_plain(offsets, cand, pair_ray, rayf,
-                                       g.cl_feat, pair_block=PB)
+    split = ig.pair_hit_plain(offsets, cand, pair_ray, rayf,
+                              g.cl_feat_split, pair_block=PB)
+    f32 = ig.pair_walk_plain(offsets, cand, pair_ray, rayf,
+                             ic.cluster_major(g.cl_feat), ic.visit_plain,
+                             pair_block=PB)
+    for t_p, slot_p, _ in (split, f32):
+        _pair_plain_matches_brute(g, o, d, offsets, cand, pair_ray, t_p,
+                                  slot_p, PB)
+
+
+def _pair_plain_matches_brute(g, o, d, offsets, cand, pair_ray, t_p, slot_p,
+                              PB):
     cl_map = g.cl_map.numpy().reshape(-1, 128)
     for b in range(offsets.shape[0] - 1):
         rays = pair_ray[b * PB:(b + 1) * PB].long()
@@ -288,19 +300,23 @@ def test_pair_hit_plain_matches_brute(mesh_pair, pair_inputs):
 
 
 def test_pair_hit_rejects_bad_inputs(mesh_pair, pair_inputs):
+    """CPU tensors never launch the kernel; malformed inputs, the f32 table
+    among them (the kernel takes the split table), raise."""
     _, g = mesh_pair
     _, _, cell_s, pair_ray, rayf = pair_inputs
+    split = g.cl_feat_split
     offsets, cand = ig.pair_candidates(cell_s, g.gr_cell_start)
-    ok = (offsets, cand, pair_ray, rayf, g.cl_feat)
+    ok = (offsets, cand, pair_ray, rayf, split)
     launches = ig.LAUNCHES
     ig.pair_hit(*ok)
     assert ig.LAUNCHES == launches, "CPU tensors never launch the kernel"
     bad = [
-        ((offsets.long(), cand, pair_ray, rayf, g.cl_feat), {}),
-        ((offsets[:-1].contiguous(), cand, pair_ray, rayf, g.cl_feat), {}),
-        ((offsets, cand, pair_ray, rayf[:10].contiguous(), g.cl_feat), {}),
-        ((offsets, cand, pair_ray, rayf, g.cl_feat[:, :100]), {}),
-        ((offsets, cand, pair_ray, rayf, g.cl_feat.to("meta")), {}),
+        ((offsets.long(), cand, pair_ray, rayf, split), {}),
+        ((offsets[:-1].contiguous(), cand, pair_ray, rayf, split), {}),
+        ((offsets, cand, pair_ray, rayf[:10].contiguous(), split), {}),
+        ((offsets, cand, pair_ray, rayf, split[:, :100]), {}),
+        ((offsets, cand, pair_ray, rayf, split.to("meta")), {}),
+        ((offsets, cand, pair_ray, rayf, g.cl_feat), {}),
         (ok, {"pair_block": 100}),
         (ok, {"pair_block": 1024}),
     ]

