@@ -7,18 +7,20 @@ kernels and the three visit-arithmetic probes) and the native BVH builder
 from the repository's sources, all at once. Holds each kernel against its
 plain PyTorch version at its main path's shapes (the probes at the probe
 script's shapes and at full width on the bench table, timed beside their
-bounds and a library call; the pair and stream kernels, whose visit is the
-split product on the tensor cores, also against the f32 product at the
-reference's bar), runs the probe entry point, renders the golden
+bounds and a library call; the cluster, pair and stream kernels, whose
+visit is the split product on the tensor cores, also against the f32
+product at the reference's bar, the cluster kernel on bounce 0's and
+bounce 1's queries), runs the probe entry point, renders the golden
 scenes through the cluster, grid, BVH and stream routes and compares them
 with ``tests/golden``, then drives every path at full size: the ``bench``
-preset (cornell_mesh, cluster route, K1) and the same scene through the BVH
-walk (K4); ``config2`` and ``config3`` (the BVH walk, K4); ``config5``
-(big_mesh, 2M triangles, grid route, K2) and the same scene through the
-BVH walk (K4) and through the stream route (K3), each rendered and timed;
-a value-and-grad step of the full bench frame through K1 and through K4;
-and material gradients against central differences. Every phase either
-passes or raises; the last line of standard output is
+preset (cornell_mesh, cluster route, K1; its frame also against the BVH
+walk's image, and each of its 8 K1 calls timed) and the same scene through
+the BVH walk (K4); ``config2`` and ``config3`` (the BVH walk, K4);
+``config5`` (big_mesh, 2M triangles, grid route, K2) and the same scene
+through the BVH walk (K4) and through the stream route (K3), each rendered
+and timed; a value-and-grad step of the full bench frame through K1 and
+through K4; and material gradients against central differences. Every
+phase either passes or raises; the last line of standard output is
 ``{"ok": true, "device": {...}}`` only when all passed. There is no CPU
 path: without a CUDA device the script fails at once.
 """
@@ -85,7 +87,7 @@ CHECK_PIXELS = 256 * 1024  # rays per query in the kernel-vs-plain phases
 BVH_CHECK_PIXELS_C5 = 64 * 1024  # K4 vs plain on the config-5 scene
 T_RTOL, T_ATOL = 4e-3, 2e-4  # the reference's cluster-vs-brute t bar
 MAT_AGREE = 0.999
-# K2/K3 (the split product on the tensor cores) against their plain
+# K1-K3 (the split product on the tensor cores) against their plain
 # versions on the split table: only the summation order inside an mma
 # k-step differs, so hit masks agree on all but 1e-5 of rays and t within
 # the probe's K6-vs-plain bar where both hit.
@@ -115,6 +117,11 @@ SPLIT_T_FLOOR = 1e-6
 SPLIT_TERM_ERR = 2.0 ** -14
 GRID_BAR = 2e-3  # the reference's grid-vs-jnp render bar: |d| <= a + a|ref|
 GRID_BAD_PIXELS = 0.002  # ... on all but this share of pixels
+# The reference's engine bar of the cluster route against the BVH walk
+# (scripts/tpu_checks.py): a pixel is bad where a channel differs by more
+# than ENGINE_BAR + ENGINE_BAR * |bvh|, and fewer than ENGINE_BAD_PIXELS of
+# the pixels are bad.
+ENGINE_BAR, ENGINE_BAD_PIXELS = 5e-3, 0.005
 STREAM_FRAME_LIMIT_S = 120.0  # the stream frame runs at 1024^2 within this
 STREAM_PROBE_SIDE = 512  # ... judged by a frame of this side first
 PROBE_RTOL, PROBE_ATOL = 1e-5, 1e-6  # K5 vs its plain version
@@ -133,9 +140,11 @@ FD_SIDE = 256  # the bench frame's side for the FD cases
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
-# f32 operations per (ray, triangle) test of visit.cuh: the four feature
-# dot products (40 multiplies + 36 adds), four sign multiplies, u + v and
-# |det| * T_MIN (compares and selects not counted).
+# f32 operations per (ray, triangle) test in the f32 form (visit_plain's
+# product on the CUDA cores, the port's cluster kernel before the tensor
+# cores): the four feature dot products (40 multiplies + 36 adds), four
+# sign multiplies, u + v and |det| * T_MIN (compares and selects not
+# counted).
 OPS_PER_TRI_TEST = 82
 # The same test in visit_mma.cuh's form: the four split products, 30 bf16
 # multiply-adds each, on the tensor cores, and the epilogue's 6 f32
@@ -226,18 +235,20 @@ def trace_bounce0(scene, cfg, pixel_ids) -> None:
 
 
 def record_main_path_queries(scene, cfg, pixel_ids):
-    """The (cand, count, tnear, rayf) the main path hands to cluster_hit for
-    bounce 0: its closest-hit query and its NEE shadow query."""
+    """The arguments the main path hands to cluster_hit, (cand, count,
+    tnear, rayf, split table, box_lo, box_hi) per call, over `cfg`'s
+    bounces: per bounce its closest-hit query, then its NEE shadow query."""
     calls = []
     real = ic.cluster_hit
 
-    def recording(cand, count, tnear, rayf, feat):
-        calls.append((cand, count, tnear, rayf))
-        return real(cand, count, tnear, rayf, feat)
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
 
     ic.cluster_hit = recording
     try:
-        trace_bounce0(scene, cfg, pixel_ids)
+        wavefront.trace_sample(scene.geometry, scene.materials, scene.camera,
+                               scene.lights, cfg, pixel_ids, 0)
     finally:
         ic.cluster_hit = real
     return calls
@@ -260,7 +271,7 @@ def compare_hits(name, t_k, s_k, t_p, s_p, mats) -> float:
 
 
 def compare_split(name, t_k, s_k, t_p, s_p, bound) -> tuple:
-    """A split kernel (K2, K3) against its plain version on the split
+    """A split kernel (K1-K3) against its plain version on the split
     table: hit masks agree on at least SPLIT_HIT_AGREE of the entries and
     t within SPLIT_T_ATOL (rtol 0) where both hit. A flip whose hit lies
     within SPLIT_T_ATOL of the entry's t bound `bound` does not count: a
@@ -325,7 +336,7 @@ def split_explains(feat, rays, t_a, s_a, t_b, s_b) -> tuple:
 
 def compare_f32(name, t_k, s_k, t_f, s_f, mats, bound, shadow, feat,
                 rays) -> tuple:
-    """A split kernel (K2, K3) against the f32 product (the f32 visit on
+    """A split kernel (K1-K3) against the f32 product (the f32 visit on
     the f32 table `feat`) at the reference's bar: what the engine reads
     (engine_reads; `bound` the entries' t bounds) agrees on at least
     F32_HIT_AGREE of the entries (a `shadow` query's on all but
@@ -413,6 +424,14 @@ def tri_tests(visits, rays_per_block) -> int:
         * ic.CLUSTER_TRIS
 
 
+def warp_tests(warp_visits) -> int:
+    """(ray, triangle) tests the walk kernels' (K1, K3) warps computed:
+    warp visits x 64 rays x 128 triangles. A warp visit the box skip drops
+    does no test, so it is no work of the bound."""
+    return int(warp_visits.to(torch.int64).sum()) * ic.WARP_RAYS \
+        * ic.CLUSTER_TRIS
+
+
 def split_ops_ms(tests) -> float:
     """The least time of the operations of `tests` (ray, triangle) tests in
     visit_mma.cuh's form: the split products at the bf16 tensor rate or the
@@ -428,9 +447,9 @@ def split_bytes(feat_split, visited) -> int:
 
 
 def add_split_bound(out, n_bytes, tests) -> tuple:
-    """Adds one call of a split kernel (K2, K3) to out at its bound in
+    """Adds one call of a split kernel (K1-K3) to out at its bound in
     visit_mma.cuh's form; returns that bound and the same tests' bound in
-    visit.cuh's f32 form (82 f32 operations per test), in ms."""
+    the f32 form (82 f32 operations per test), in ms."""
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
     ops_ms = split_ops_ms(tests)
     out["bytes_ms"] += bytes_ms
@@ -440,43 +459,133 @@ def add_split_bound(out, n_bytes, tests) -> tuple:
             max(bytes_ms, tests * OPS_PER_TRI_TEST / PEAK_F32 * 1e3))
 
 
+def reference_work_ms(n_bytes, visits) -> float:
+    """The bound in visit_mma.cuh's form on the reference's work, which the
+    box skip does not cut: every block visit x 512 rays x 128 triangles."""
+    return max(n_bytes / PEAK_BYTES * 1e3,
+               split_ops_ms(tri_tests(visits, ic.RAY_BLOCK)))
+
+
+def k1_bytes(args, outs) -> int:
+    """Bytes of one cluster_hit call: its inputs but the table and its
+    outputs once each, and the split table's clusters its blocks walked,
+    each distinct cluster once."""
+    cand, count, tnear, rayf, feat, box_lo, box_hi = args
+    walked = torch.arange(cand.shape[1], device=cand.device)[None, :] \
+        < outs[2][:, None]
+    return nbytes(cand, count, tnear, rayf, box_lo, box_hi, *outs) \
+        + split_bytes(feat, cand[walked])
+
+
+def query_label(i) -> str:
+    return f"bounce {i // 2} {('closest', 'shadow')[i % 2]}"
+
+
 def phase_kernel_vs_plain(scene, cfg, device) -> dict:
-    feat = scene.geometry.cl_feat
-    mats = scene.geometry.cl_slot_nm[:, 3]
+    """K1 against its plain version on the split table (bar a) and against
+    the f32 walk (bar b, and the split floor on the closest-hit queries) on
+    bounce 0's and bounce 1's closest-hit and shadow queries of the first
+    CHECK_PIXELS tile-ordered pixels, timed beside the plain version and
+    its bound (the warps' work in the tensor-core form; the reference's
+    work, every block visit, printed beside it). Returns bounce 0's two
+    calls' totals, the kernels line's entry; bounce 1's are printed."""
+    g = scene.geometry
+    mats = g.cl_slot_nm[:, 3]
     ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width,
                           device=device)[:CHECK_PIXELS]
     before = ic.LAUNCHES
-    queries = record_main_path_queries(scene, cfg, ids)
-    check(len(queries) == 2, f"bounce 0 made {len(queries)} cluster "
-          "queries, expected 2 (closest hit + shadow)")
-    check(ic.LAUNCHES == before + 2, "main-path queries launched the kernel")
-    out = new_totals()
-    for name, (cand, count, tnear, rayf) in zip(("closest", "shadow"),
-                                                queries):
+    queries = record_main_path_queries(scene, cfg.replace(max_depth=2), ids)
+    check(len(queries) == 4, f"bounces 0 and 1 made {len(queries)} cluster "
+          "queries, expected 4 (closest hit + shadow each)")
+    check(ic.LAUNCHES == before + 4, "main-path queries launched the kernel")
+    per_bounce = [new_totals(), new_totals()]
+    ref_work = [0.0, 0.0]  # bound on the reference's work, per bounce
+    for i, args in enumerate(queries):
+        label, shadow = query_label(i), i % 2 == 1
+        cand, count, _, rayf = args[:4]
         n0 = ic.LAUNCHES
-        t_k, s_k, v_k = ic.cluster_hit(cand, count, tnear, rayf, feat)
+        outs = ic.cluster_hit(*args)
         torch.cuda.synchronize()
         check(ic.LAUNCHES == n0 + 1, "cluster_hit launched the kernel")
-        t_p, s_p, v_p = ic.cluster_hit_plain(cand, count, tnear, rayf, feat)
-        err = compare_hits(name, t_k, s_k, t_p, s_p, mats)
-        n_bytes = nbytes(cand, count, tnear, rayf, feat, t_k, s_k, v_k)
-        tests = tri_tests(v_k, ic.RAY_BLOCK)
-        bound = add_bound(out, n_bytes, tests * OPS_PER_TRI_TEST)
-        tc_bound = max(n_bytes / PEAK_BYTES * 1e3, split_ops_ms(tests))
-        ms = cuda_ms(lambda: ic.cluster_hit(cand, count, tnear, rayf, feat),
-                     20)
-        plain_ms = cuda_ms(
-            lambda: ic.cluster_hit_plain(cand, count, tnear, rayf, feat), 3)
-        print(f"[kernel] cluster_hit {name} query: {rayf.shape[1]} rays in "
-              f"{cand.shape[0]} blocks, {int((s_k >= 0).sum())} hits, "
-              f"visits/block kernel {v_k.float().mean().item():.2f} plain "
-              f"{v_p.float().mean().item():.2f}; hit masks equal, t max abs "
-              f"err {err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms (f32 form; the same tests in visit_mma.cuh's "
-              f"tensor-core form {tc_bound:.4f} ms)")
-        add_totals(out, ms, plain_ms, err)
-    return out
+        t_k, s_k, v_k, w_k = outs
+        t_p, s_p, v_p, _ = ic.cluster_hit_plain(*args)
+        bound = rayf[ic.RAY_FEATS - 1]
+        flips_a, edge_a, err = compare_split(label, t_k, s_k, t_p, s_p, bound)
+        check(bool((v_k <= v_p).all() and (w_k <= 8 * v_k).all()),
+              f"{label}: visits above the plain walk's")
+        t_f, s_f = bound.clone(), torch.full_like(s_k, -1)
+        ic.walk_candidates_plain(cand, count, rayf,
+                                 ic.cluster_major(g.cl_feat), ic.visit_plain,
+                                 t_f, s_f)
+        b = compare_f32(label, t_k, s_k, t_f, s_f, mats, bound, shadow,
+                        g.cl_feat, rayf)
+        if not shadow:
+            check(b[-1] >= SPLIT_T_FLOOR, f"{label}: max |t - f32 t| "
+                  f"{b[-1]:.3g} below {SPLIT_T_FLOOR}: the product was not "
+                  "split")
+        n_bytes = k1_bytes(args, outs)
+        totals = per_bounce[i // 2]
+        bound_ms, f32_bound = add_split_bound(totals, n_bytes, warp_tests(w_k))
+        ref_ms = reference_work_ms(n_bytes, v_k)
+        ref_work[i // 2] += ref_ms
+        ms = cuda_ms(lambda: ic.cluster_hit(*args), 20)
+        plain_ms = cuda_ms(lambda: ic.cluster_hit_plain(*args),
+                           3 if i < 2 else 1)
+        print(f"[kernel] cluster_hit {label} query: {rayf.shape[1]} rays "
+              f"({int((bound > C.T_MIN).sum())} live) in {cand.shape[0]} "
+              f"blocks, {int((s_k >= 0).sum())} hits, visits/block kernel "
+              f"{v_k.float().mean().item():.3f} plain "
+              f"{v_p.float().mean().item():.3f}, warp visits/block "
+              f"{w_k.float().mean().item():.3f} (without the skip "
+              f"{8 * v_k.float().mean().item():.3f}); vs split plain: "
+              f"{flips_a} mask flips (+{edge_a} at the t bound), t max abs "
+              f"err {err:.3g}; vs f32 walk: {f32_line(b)}; kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"(tensor-core form on the warps' work, {n_bytes / 1e6:.1f} "
+              f"MB; on the reference's work {ref_ms:.4f} ms; f32 form "
+              f"{f32_bound:.4f} ms)")
+        add_totals(totals, ms, plain_ms, err)
+    for bounce, totals in enumerate(per_bounce):
+        print(f"[kernel] cluster_hit bounce {bounce} checked calls: kernel "
+              f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, "
+              f"bound {totals['bound_ms']:.4f} ms (tensor-core form on the "
+              f"warps' work; on the reference's work "
+              f"{ref_work[bounce]:.4f} ms)")
+    return per_bounce[0]
+
+
+def phase_k1_frame(scene, device, card: str) -> None:
+    """Each of the 8 cluster_hit calls of one full bench frame, timed with
+    CUDA events beside its bound, with its block visits and warp visits
+    per block, and their sum: K1's milliseconds per frame."""
+    cfg = pt.PRESETS["bench"]
+    calls = record_main_path_queries(
+        scene, cfg, tiled_pixel_ids(0, cfg.n_pixels, cfg.width,
+                                    device=device))
+    check(len(calls) == 2 * cfg.max_depth, f"the bench frame made "
+          f"{len(calls)} cluster queries, expected {2 * cfg.max_depth}")
+    total, total_bound, total_ref = 0.0, 0.0, 0.0
+    for i, args in enumerate(calls):
+        outs = ic.cluster_hit(*args)
+        v_k, w_k = outs[2].float(), outs[3].float()
+        n_bytes = k1_bytes(args, outs)
+        bound_ms, _ = add_split_bound(new_totals(), n_bytes,
+                                      warp_tests(outs[3]))
+        ref_ms = reference_work_ms(n_bytes, outs[2])
+        ms = cuda_ms(lambda: ic.cluster_hit(*args), 10)
+        total, total_bound, total_ref = (total + ms, total_bound + bound_ms,
+                                         total_ref + ref_ms)
+        live = int((args[3][ic.RAY_FEATS - 1] > C.T_MIN).sum())
+        print(f"[main] bench K1 call {i} ({query_label(i)}): "
+              f"{args[3].shape[1]} rays ({live} live), kernel {ms:.4f} ms, "
+              f"visits/block {v_k.mean().item():.3f}, warp visits/block "
+              f"{w_k.mean().item():.3f} (without the skip "
+              f"{8 * v_k.mean().item():.3f}), bound {bound_ms:.4f} ms "
+              f"(tensor-core form on the warps' work; on the reference's "
+              f"work {ref_ms:.4f} ms)")
+    print(f"[main] bench K1 per frame: {total:.4f} ms over {len(calls)} "
+          f"calls (CUDA events), bound {total_bound:.4f} ms (on the "
+          f"reference's work {total_ref:.4f} ms), on {card}")
 
 
 def record_bvh_queries(scene, cfg, pixel_ids):
@@ -613,23 +722,23 @@ def phase_pair_vs_plain(scene, cfg, device) -> dict:
 
 def record_stream_rounds(scene, cfg, pixel_ids, keep_inputs: bool):
     """One trace_sample(with_stats=True); returns its useful rays and, per
-    closest_hit_stream call, the visits of each round and, with
-    keep_inputs, its stream_hit inputs (cand, count, tnear, rayf, t_in,
-    slot_in)."""
+    closest_hit_stream call, the visits and warp visits of each round and,
+    with keep_inputs, its stream_hit arguments (cand, count, tnear, rayf,
+    t_in, slot_in, split table, box_lo, box_hi)."""
     queries = []
     real_hit, real_stream = st.stream_hit, st.closest_hit_stream
 
     def recording_stream(*args, **kw):
         queries.append({"rays": args[1].shape[0], "visits": [],
-                        "inputs": []})
+                        "warp_visits": [], "inputs": []})
         return real_stream(*args, **kw)
 
-    def recording_hit(cand, count, tnear, rayf, t_in, slot_in, feat):
-        out = real_hit(cand, count, tnear, rayf, t_in, slot_in, feat)
+    def recording_hit(*args):
+        out = real_hit(*args)
         queries[-1]["visits"].append(int(out[2].sum()))
+        queries[-1]["warp_visits"].append(int(out[3].sum()))
         if keep_inputs:
-            queries[-1]["inputs"].append((cand, count, tnear, rayf, t_in,
-                                          slot_in))
+            queries[-1]["inputs"].append(args)
         return out
 
     st.stream_hit, st.closest_hit_stream = recording_hit, recording_stream
@@ -658,20 +767,20 @@ def phase_stream_vs_plain(scene, cfg, device) -> dict:
     out = new_totals()
     for name, q in zip(("closest", "shadow"), queries):
         check(len(q["inputs"]) > 0, f"stream {name} query ran no round")
-        ms = plain_ms = err = bound = f32_bound = 0.0
+        ms = plain_ms = err = bound = f32_bound = ref_bound = 0.0
         flips_a = [0, 0]  # vs split plain: mask flips, flips at the bound
         b = [0, 0, 0, 0, 0, 0.0]  # vs f32: compare_f32's counts
-        visits, mb = [], 0.0
+        visits, warp_visits, mb = [], [], 0.0
         for args in q["inputs"]:
             n0 = st.LAUNCHES
-            t_k, s_k, v_k = st.stream_hit(*args, g.cl_feat_split)
+            t_k, s_k, v_k, w_k = st.stream_hit(*args)
             torch.cuda.synchronize()
             check(st.LAUNCHES == n0 + 1, "stream_hit launched the kernel")
             t0 = time.perf_counter()
-            t_p, s_p, _ = st.stream_hit_plain(*args, g.cl_feat_split)
+            t_p, s_p, _, _ = st.stream_hit_plain(*args)
             torch.cuda.synchronize()
             plain_ms += (time.perf_counter() - t0) * 1e3
-            cand, count, _, rayf, t_in, slot_in = args
+            cand, count, _, rayf, t_in, slot_in = args[:6]
             t_max = rayf[ic.RAY_FEATS - 1]
             *f, e = compare_split(name, t_k, s_k, t_p, s_p, t_max)
             t_f, s_f = t_in.clone(), slot_in.clone()
@@ -685,14 +794,15 @@ def phase_stream_vs_plain(scene, cfg, device) -> dict:
             err = max(err, e)
             walked = torch.arange(cand.shape[1], device=device)[None, :] \
                 < v_k[:, None]
-            n_bytes = nbytes(*args, t_k, s_k, v_k) + split_bytes(
-                g.cl_feat_split, cand[walked])
-            r_bound, r_f32 = add_split_bound(out, n_bytes,
-                                             tri_tests(v_k, ic.RAY_BLOCK))
+            n_bytes = nbytes(*args[:6], *args[7:], t_k, s_k, v_k, w_k) \
+                + split_bytes(g.cl_feat_split, cand[walked])
+            r_bound, r_f32 = add_split_bound(out, n_bytes, warp_tests(w_k))
             bound, f32_bound = bound + r_bound, f32_bound + r_f32
+            ref_bound += reference_work_ms(n_bytes, v_k)
             mb += n_bytes / 1e6
-            ms += cuda_ms(lambda: st.stream_hit(*args, g.cl_feat_split), 5)
+            ms += cuda_ms(lambda: st.stream_hit(*args), 5)
             visits.append(int(v_k.sum()))
+            warp_visits.append(int(w_k.sum()))
         if name == "closest":
             check(b[-1] >= SPLIT_T_FLOOR, f"stream {name}: max |t - f32 t| "
                   f"{b[-1]:.3g} below {SPLIT_T_FLOOR}: the product was not "
@@ -700,12 +810,15 @@ def phase_stream_vs_plain(scene, cfg, device) -> dict:
         B = q["inputs"][0][0].shape[0]
         print(f"[kernel] stream_hit {name} query: {q['rays']} rays in {B} "
               f"blocks, {len(q['inputs'])} rounds, visits per round "
-              f"{visits} (mean per block {sum(visits) / B:.2f}); vs split "
+              f"{visits} (mean per block {sum(visits) / B:.2f}), warp visits "
+              f"per round {warp_visits} (mean per block "
+              f"{sum(warp_visits) / B:.2f}); vs split "
               f"plain: {flips_a[0]} mask flips (+{flips_a[1]} at the t "
               f"bound), t max abs err {err:.3g}; vs f32 product: "
               f"{f32_line(b)}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms (tensor-core form, {mb:.1f} MB; f32 "
-              f"form {f32_bound:.4f} ms; all rounds)")
+              f"bound {bound:.4f} ms (tensor-core form on the warps' work, "
+              f"{mb:.1f} MB; on the reference's work {ref_bound:.4f} ms; "
+              f"f32 form {f32_bound:.4f} ms; all rounds)")
         add_totals(out, ms, plain_ms, err)
     return out
 
@@ -793,6 +906,16 @@ def phase_main_path(scene, device, card: str) -> int:
           f"{2 * cfg.max_depth}")
     print(f"[main] render(bench) {cfg.width}x{cfg.height} depth "
           f"{cfg.max_depth}: mean {mean:.6f}, launches {counts}")
+    # The same seed through the BVH walk (K4, the f32 product): the split
+    # product's effect on the main path's image.
+    bvh = pt.render(scene, cfg.replace(backend="jnp"))
+    diff = (img - bvh).abs()
+    bad = (diff > ENGINE_BAR + ENGINE_BAR * bvh.abs()).any(-1).float().mean()
+    print(f"[main] render(bench) via K1 vs via K4: max abs diff "
+          f"{diff.max().item():.3g}, bad-pixel share {bad.item():.6f} (bar "
+          f"{ENGINE_BAR} + {ENGINE_BAR}|bvh|, under {ENGINE_BAD_PIXELS})")
+    check(bad.item() < ENGINE_BAD_PIXELS, f"bench via K1 vs via K4: "
+          f"bad-pixel share {bad.item()}")
 
     time_frames("bench", frame_args(scene, cfg, device), 5, card)
     return counts["cluster_hit"]
@@ -985,7 +1108,8 @@ def phase_stream(scene, device, card: str) -> int:
         print(f"[main] config5 stream query {i} (bounce {i // 2}, "
               f"{('closest', 'shadow')[i % 2]}): {q['rays']} rays, "
               f"{len(q['visits'])} rounds, {sum(q['visits'])} K3 cluster "
-              f"visits (per round {q['visits']})")
+              f"visits (per round {q['visits']}), {sum(q['warp_visits'])} "
+              f"warp visits")
     print(f"[main] trace_sample(config5 backend=stream {cfg.width}x"
           f"{cfg.height}, tiled, with_stats): {n_rays} useful rays, frame s "
           f"{seconds:.6f}, {n_rays / seconds:.1f} useful rays/s, peak "
@@ -1017,7 +1141,8 @@ def bench_probe_inputs(scene, cfg, device):
     frame's bounce-0 closest-hit ray features (all 1024² tile-ordered
     rays), padded with zero rows from the port's 11 to the probe's 16."""
     ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width, device=device)
-    rayf = record_main_path_queries(scene, cfg, ids)[0][3]
+    rayf = record_main_path_queries(scene, cfg.replace(max_depth=1),
+                                    ids)[0][3]
     rays = torch.zeros((PROBE_PAD_ROWS, rayf.shape[1]), dtype=torch.float32,
                        device=device)
     rays[:rayf.shape[0]] = rayf
@@ -1345,6 +1470,7 @@ def main() -> int:
                            c3.n_pixels, device, k4)
         phase_goldens(device)
         k1_launches = phase_main_path(bench, device, card)
+        phase_k1_frame(bench, device, card)
         bench_k4 = pt.PRESETS["bench"].replace(backend="jnp")
         time_frames("bench backend=jnp", frame_args(bench, bench_k4, device),
                     5, card, "bvh_hit")

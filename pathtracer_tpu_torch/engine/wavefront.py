@@ -322,6 +322,11 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
                 w_nee = (p_l * p_l) / torch.clamp(p_l * p_l + p_b * p_b,
                                                   min=1e-20)
                 geo_term = geo_term * w_nee
+            # Only candidate lanes read contrib. Elsewhere dist² may
+            # overflow, making w_nee inf/inf = NaN, and the zero cotangent
+            # the masking where sends back times that NaN is NaN: zero the
+            # term there (the forward result is unchanged).
+            geo_term = torch.where(cand, geo_term, 0.0)
             contrib = throughput * (alb_m / math.pi) * emis_l \
                 * geo_term.detach()[:, None]
             radiance = radiance + torch.where(

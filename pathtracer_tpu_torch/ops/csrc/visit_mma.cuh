@@ -1,10 +1,12 @@
-// The tensor-core cluster visit shared by the stream kernel
-// (intersect_stream.cu) and the pair kernel (intersect_pair.cu): each
-// candidate cluster's 32 KB block of the split table is bulk-copied into a
-// shared-memory ring, and the visit computes det, u*det, v*det and t*det of
-// its 128 triangles against a warp's rays as the reference's bf16 hi/lo
-// split product on the tensor cores, then the Moller-Trumbore epilogue of
-// csrc/visit.cuh on each lane's own products.
+// The tensor-core cluster visit, and the ordered walk built on it, of the
+// cluster kernel (intersect_cluster.cu, K1), the stream kernel
+// (intersect_stream.cu, K3) and, the visit only, the pair kernel
+// (intersect_pair.cu, K2). Each candidate cluster's 32 KB block of the split
+// table is bulk-copied into a shared-memory ring, and the visit computes
+// det, u*det, v*det and t*det of its 128 triangles against a warp's rays as
+// the reference's bf16 hi/lo split product on the tensor cores, then the
+// sign-canonical multiply-form Moller-Trumbore test on each lane's own
+// products.
 //
 // The product. accel/clusters.py:split_table stores every column as
 // SPLIT_K = 32 bf16, the table side [hi(10); hi(10); lo(10); 0; 0] of the
@@ -33,15 +35,39 @@
 // triangle order, and the quad then takes the lexicographic min of
 // (t, row), so equal t keeps the lowest row; across visits a strictly
 // nearer hit replaces the best, so equal t keeps the earlier visit: the
-// rule of visit.cuh and of the plain versions.
+// rule of the plain versions.
 //
 // The staging. One thread issues cp.async.bulk (TMA without a tensor map)
-// of candidate k + 1's block into the other stage of a two-stage ring
-// before the CTA computes on candidate k; completion is counted in bytes
-// by one mbarrier per stage. A barrier of the whole CTA before each issue
-// keeps the previous visit's readers ahead of the copy that overwrites
-// their stage. A walk that stops early only abandons a prefetch, and waits
-// for it before the CTA exits.
+// of each candidate's block into the ring kStages - 1 candidates ahead of
+// the visit; completion is counted in bytes by one mbarrier per stage. A
+// barrier of the whole CTA before each issue keeps the readers of the
+// stage's previous visit ahead of the copy that overwrites it. A walk that
+// stops early only abandons its prefetches, and waits for them before the
+// CTA exits.
+//
+// The walk (walk_block). One CTA of 8 warps per 512-ray block walks the
+// block's near-first candidate list with the ordered early exit: before
+// each visit the CTA votes, and once no ray's best t lies beyond the
+// candidate's entry bound no later candidate can improve any ray. The
+// candidate list is the union of the block's rays' lines, so many of its
+// clusters lie off most of a warp's rays: before a warp multiplies a
+// candidate's 16 tiles it slab-tests its 64 rays against the cluster's box,
+// inflated as ops/intersect_cluster.py:ray_cluster_mask inflates it, within
+// [T_MIN, the ray's best t x (1 + 2^-12)] (lane t tests the rows g and
+// g + 8 of m tile t), and skips the visit when no ray crosses it. A
+// triangle whose exact hit is nearer than that lies inside the box. The
+// slack covers the split product's error in t: where two clusters share an
+// edge, the first one's split t may lie a little before the exact hit, and
+// so before the second one's box, whose triangle the walk without the skip
+// would still test and might take at a split t nearer still. The split's q
+// errs by about 2^-17 of its terms' magnitudes, so its t errs by far less
+// than 2^-12 unless det or t*det cancel deeply; only such a hit, at such a
+// seam, could be skipped. The CTA still stages every candidate, and votes
+// on every one.
+//
+// The ring depth (2) and the occupancy (2 CTAs of 256 threads per SM) are
+// the fastest of the depths 2-4 x 1-3 CTAs per SM timed on the bench frame
+// (PERF.md, PR 6).
 
 #pragma once
 
@@ -198,7 +224,7 @@ __device__ __forceinline__ void product(float (&c)[4][4],
   }
 }
 
-// visit.cuh's per-triangle test on the lane's four (det, u*det, v*det,
+// The per-triangle test on the lane's four (det, u*det, v*det,
 // t*det) of c: element e is row g + 8 (e >> 1), triangle j0 + (e & 1); a
 // valid hit strictly nearer than tv[e >> 1] replaces it and its row. The
 // sign fold flips sign bits instead of multiplying by sign(det): the same
@@ -295,6 +321,205 @@ __device__ __forceinline__ void visit_cluster(const unsigned char* tab,
         best[m][h] = cid * kTris + sq;
       }
     }
+  }
+}
+
+// ---- the per-warp cluster-box skip ------------------------------------------
+
+// ops/intersect_cluster.py:_safe_inverse.
+__device__ __forceinline__ float safe_inverse(float d) {
+  constexpr float kTiny = 1e-20f;
+  return __fdiv_rn(1.0f, fabsf(d) < kTiny ? (d < 0.0f ? -kTiny : kTiny) : d);
+}
+
+// A lane's two rays of the box test, the rows g and g + 8 of m tile t:
+// origins and safe inverse directions.
+struct BoxRays {
+  float o[2][3];
+  float inv[2][3];
+};
+
+// Whether the ray (o, inv) crosses the box [lo, hi] within [T_MIN, t_max]:
+// ray_cluster_mask's slab test, rounded as it rounds (no contraction).
+__device__ __forceinline__ bool crosses(const float (&o)[3],
+                                        const float (&inv)[3],
+                                        const float (&lo)[3],
+                                        const float (&hi)[3], float t_max) {
+  float t_in = -INFINITY, t_out = INFINITY;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t0 = __fmul_rn(__fsub_rn(lo[a], o[a]), inv[a]);
+    const float t1 = __fmul_rn(__fsub_rn(hi[a], o[a]), inv[a]);
+    t_in = fmaxf(t_in, fminf(t0, t1));
+    t_out = fminf(t_out, fmaxf(t0, t1));
+  }
+  return t_out >= fmaxf(t_in, visit::kTMin) && t_in <= t_max;
+}
+
+// The skip's slack on the best t (ops/intersect_cluster.py:SKIP_T_SLACK).
+constexpr float kSkipTSlack = 1.000244140625f;  // 1 + 2^-12
+
+// Whether some ray of the warp crosses cluster cid's box, inflated by
+// ray_cluster_mask's pad, before its best t x kSkipTSlack (uniform across
+// the warp).
+__device__ __forceinline__ bool warp_crosses(const BoxRays& br,
+                                             const float* __restrict__ box_lo,
+                                             const float* __restrict__ box_hi,
+                                             int cid,
+                                             const float (&t_best)[kTilesM][2],
+                                             int t) {
+  float lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float l = __ldg(box_lo + 3 * cid + a);
+    const float h = __ldg(box_hi + 3 * cid + a);
+    const float pad =
+        __fadd_rn(__fmul_rn(1e-6f, fmaxf(fabsf(l), fabsf(h))), 1e-7f);
+    lo[a] = __fsub_rn(l, pad);
+    hi[a] = __fadd_rn(h, pad);
+  }
+  bool any = false;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float tb = t_best[0][h];
+#pragma unroll
+    for (int m = 1; m < kTilesM; ++m) tb = t == m ? t_best[m][h] : tb;
+    any = any ||
+          crosses(br.o[h], br.inv[h], lo, hi, __fmul_rn(tb, kSkipTSlack));
+  }
+  return __any_sync(0xffffffffu, any);
+}
+
+// ---- the walk ---------------------------------------------------------------
+
+constexpr int kRayBlock = 512;                           // rays per CTA
+constexpr int kWalkThreads = kRayBlock / kWarpRays * 32;  // 256
+constexpr int kWalkCtasPerSm = 2;
+
+// One walk's arguments. Shapes: cand/tnear (n_blocks, n_cand_max), count
+// (n_blocks,), rayf (11, n_rays) with n_rays = 512 * n_blocks, t_in/slot_in
+// (n_rays,) (slot_in null: every ray starts at -1), table (n_clusters, 512,
+// 32) bf16 split columns, 16-byte aligned, box_lo/box_hi (n_clusters, 3);
+// outputs t/slot (n_rays,), visits/warp_visits (n_blocks,).
+struct WalkArgs {
+  const int* cand;
+  const int* count;
+  const float* tnear;
+  const float* rayf;
+  const float* t_in;
+  const int* slot_in;
+  const unsigned char* table;
+  const float* box_lo;
+  const float* box_hi;
+  float* t_out;
+  int* slot_out;
+  int* visits_out;
+  int* warp_visits_out;
+  int n_cand_max;
+  int n_clusters;
+  int n_rays;
+};
+
+// The CTA of block blockIdx.x continues, from each ray's t_in and slot_in,
+// the ordered walk of the block's first min(count, n_cand_max) candidates,
+// and writes the new best t and slot, the candidates it walked and the
+// visits its warps computed (the skip's savings are the difference to 8
+// per candidate). Every thread of the CTA calls it; smem holds the ring.
+__device__ __forceinline__ void walk_block(const WalkArgs& a,
+                                           unsigned char* smem) {
+  __shared__ int warp_visits_sum;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const long long warp_ray =
+      static_cast<long long>(b) * kRayBlock + (tid / 32) * kWarpRays;
+  const auto ray_of = [&](int m, int h) {
+    return warp_ray + 16 * m + g + 8 * h;
+  };
+  const auto feat = [&](int i, long long ray) {
+    return a.rayf[static_cast<long long>(i) * a.n_rays + ray];
+  };
+
+  float t_best[kTilesM][2];
+  int best[kTilesM][2];
+#pragma unroll
+  for (int m = 0; m < kTilesM; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      t_best[m][h] = a.t_in[ray_of(m, h)];
+      best[m][h] = a.slot_in ? a.slot_in[ray_of(m, h)] : -1;
+    }
+  }
+  if (tid == 0) warp_visits_sum = 0;
+  const int n_cand = min(a.count[b], a.n_cand_max);  // the same for the CTA
+  const int* cand_b = a.cand + static_cast<long long>(b) * a.n_cand_max;
+  const float* tnear_b = a.tnear + static_cast<long long>(b) * a.n_cand_max;
+  const auto cid_of = [&](int k) {
+    return min(max(cand_b[k], 0), a.n_clusters - 1);
+  };
+  int k = 0, warp_visits = 0;
+  if (n_cand > 0) {
+    const Ring ring(smem);
+    ring.init();
+    if (tid == 0) {
+      for (int j = 0; j < kStages - 1 && j < n_cand; ++j) {
+        ring.issue(a.table, cid_of(j), j);
+      }
+    }
+    Rays r;
+    load_rays(r, [&](int m, int h, int i) { return feat(i, ray_of(m, h)); },
+              t);
+    BoxRays br;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        br.o[h][ax] = feat(6 + ax, ray_of(t, h));  // rows 6-8: o
+        br.inv[h][ax] = safe_inverse(feat(ax, ray_of(t, h)));  // rows 0-2: d
+      }
+    }
+    for (; k < n_cand; ++k) {
+      bool done = true;
+#pragma unroll
+      for (int m = 0; m < kTilesM; ++m) {
+        done = done && t_best[m][0] <= tnear_b[k] &&
+               t_best[m][1] <= tnear_b[k];
+      }
+      // The vote is also the barrier that keeps the readers of visit k - 1
+      // ahead of the copy into its stage.
+      if (__syncthreads_and(done)) break;
+      if (tid == 0 && k + kStages - 1 < n_cand) {
+        ring.issue(a.table, cid_of(k + kStages - 1), k + kStages - 1);
+      }
+      const int cid = cid_of(k);
+      const bool need = warp_crosses(br, a.box_lo, a.box_hi, cid, t_best, t);
+      // Every warp waits, so that each copy is complete before its stage is
+      // issued again.
+      const unsigned char* tab = ring.wait(k);
+      if (need) {
+        visit_cluster(tab, r, kTilesM, cid, t_best, best, g, t);
+        ++warp_visits;
+      }
+    }
+    // The prefetches the early exit abandoned.
+    for (int j = k; j < k + kStages - 1 && j < n_cand; ++j) ring.wait(j);
+  }
+  if (t == 0) {  // a quad's lanes hold the same rows' results
+#pragma unroll
+    for (int m = 0; m < kTilesM; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        a.t_out[ray_of(m, h)] = t_best[m][h];
+        a.slot_out[ray_of(m, h)] = best[m][h];
+      }
+    }
+  }
+  __syncthreads();  // warp_visits_sum is 0
+  if (lane == 0) atomicAdd(&warp_visits_sum, warp_visits);
+  __syncthreads();
+  if (tid == 0) {
+    a.visits_out[b] = k;
+    a.warp_visits_out[b] = warp_visits_sum;
   }
 }
 

@@ -9,15 +9,20 @@ The reference's ``ops/intersect_cluster.py`` in two parts:
       so candidate lists equal the reference's.
 
   fine test (``cluster_hit``): per 512-ray block, walk the candidate
-      clusters front to back and test each cluster's 128 triangles; stop
-      once no ray's best hit lies beyond the next cluster's entry bound.
-      On a CUDA tensor this launches the hand-written kernel in
-      ``csrc/intersect_cluster.cu``; on a CPU tensor it runs
-      ``cluster_hit_plain``, the plain PyTorch version of the same contract.
+      clusters front to back and test each cluster's 128 triangles with the
+      reference's bf16 hi/lo split product (``Geometry.cl_feat_split``);
+      stop once no ray's best hit lies beyond the next cluster's entry
+      bound. On a CUDA tensor this launches the hand-written kernel in
+      ``csrc/intersect_cluster.cu``, which also skips, per 64-ray warp, a
+      cluster whose box none of the warp's rays crosses nearer than its
+      best hit; on a CPU tensor it runs ``cluster_hit_plain``, the plain
+      PyTorch version of the same contract.
 
-Contract: the same hit set as engine/intersect.py:brute (same DET_EPS/T_MIN
-predicate, in multiply-by-|det| form); t agrees to f32 tolerance; which of
-two triangles at an equal t wins may differ.
+Contract: the hit set of engine/intersect.py:brute (same DET_EPS/T_MIN
+predicate, in multiply-by-|det| form) at the reference's tolerance of the
+split product: t agrees to rtol 4e-3 / atol 2e-4, and a hit whose
+predicate lies within the split's error may flip; which of two triangles
+at an equal t wins may differ.
 """
 
 from __future__ import annotations
@@ -30,7 +35,6 @@ from .. import constants as C
 from ..accel.clusters import (
     CLUSTER_COLS,
     CLUSTER_TRIS,
-    FEAT_ROWS,
     SPLIT_K,
     split_bf16,
     unsplit_columns,
@@ -40,6 +44,11 @@ from . import _build
 from .boundary import no_gradient
 
 RAY_BLOCK = 512  # rays per cull block = rays per CUDA thread block
+WARP_RAYS = 64  # rays per warp of the walk kernels: the box skip's grain
+# The box skip tests a warp's rays up to their best t times this slack, so
+# that a split t a little before the exact hit never skips a cluster whose
+# triangle could still win (see warp_box_skip).
+SKIP_T_SLACK = 1.0 + 2.0 ** -12
 RAY_FEATS = 11  # ray-feature rows: 10 pair with the table, row 10 = t_max
 _FEAT_USED = 10
 
@@ -139,6 +148,13 @@ def block_cluster_intervals(cl_lo, cl_hi, o, d):
     return tnear_lo, tfar_hi
 
 
+def _inflate(cl_lo, cl_hi):
+    """Cluster boxes grown by 1e-6 of each axis' largest coordinate
+    magnitude plus 1e-7, so that rounding never drops a hit on a face."""
+    pad = 1e-6 * torch.maximum(cl_lo.abs(), cl_hi.abs()) + 1e-7
+    return cl_lo - pad, cl_hi + pad
+
+
 def ray_cluster_mask(cl_lo, cl_hi, o, d, t_max):
     """(B, C) per-ray line cull at cluster granularity.
 
@@ -149,9 +165,7 @@ def ray_cluster_mask(cl_lo, cl_hi, o, d, t_max):
     """
     R = o.shape[0]
     inv = _safe_inverse(d)
-    pad = 1e-6 * torch.maximum(cl_lo.abs(), cl_hi.abs()) + 1e-7
-    lo = cl_lo - pad
-    hi = cl_hi + pad
+    lo, hi = _inflate(cl_lo, cl_hi)
     n = cl_lo.shape[0]
     t_in = torch.full((R, n), -torch.inf, dtype=torch.float32,
                       device=o.device)
@@ -228,32 +242,35 @@ def cull_candidates(cl_lo, cl_hi, o, d, t_max=None, extra_mask=None):
     return cand.contiguous(), count, tnear.contiguous()
 
 
-def _check_hit_inputs(cand, count, tnear, rayf, feat, split: bool = False):
-    """Raises ValueError on malformed inputs; `split` names the table the
-    caller takes (check_table)."""
+def _check_hit_inputs(cand, count, tnear, rayf, feat, box_lo, box_hi):
+    """Raises ValueError on malformed inputs: cand/count/tnear/rayf as the
+    walks take them, feat the split table (check_table), box_lo/box_hi its
+    clusters' (C, 3) f32 boxes."""
     if cand.dim() != 2:
         raise ValueError(f"cand must be (B, K); got {tuple(cand.shape)}")
+    check_table(feat)
     B, K = cand.shape
+    n_clusters = feat.shape[0]
     expect = {
         "cand": (cand, torch.int32, (B, K)),
         "count": (count, torch.int32, (B,)),
         "tnear": (tnear, torch.float32, (B, K)),
         "rayf": (rayf, torch.float32, (RAY_FEATS, B * RAY_BLOCK)),
+        "box_lo": (box_lo, torch.float32, (n_clusters, 3)),
+        "box_hi": (box_hi, torch.float32, (n_clusters, 3)),
     }
     for name, (x, dtype, shape) in expect.items():
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {shape}; got "
                              f"{x.dtype} {tuple(x.shape)}")
-    check_table(feat, split)
-    for name, x in (("cand", cand), ("count", count), ("tnear", tnear),
-                    ("rayf", rayf), ("feat", feat)):
+    for name, x in [(n, e[0]) for n, e in expect.items()] + [("feat", feat)]:
         if x.device != rayf.device:
             raise ValueError(f"{name} is on {x.device}, rayf on {rayf.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def cluster_hit_plain(cand, count, tnear, rayf, feat,
+def cluster_hit_plain(cand, count, tnear, rayf, feat, box_lo, box_hi,
                       chunk_blocks: int = 256):
     """Plain PyTorch version of the cluster kernel's contract.
 
@@ -265,38 +282,51 @@ def cluster_hit_plain(cand, count, tnear, rayf, feat,
         the hit set).
       rayf: (11, R) f32 ray features, R = 512 * B; row 10 is the initial
         best-t.
-      feat: (16, C*512) f32 cluster feature table.
+      feat: (C, 512, 32) bf16 split table (Geometry.cl_feat_split): each
+        visit is the split product (visit_split_plain).
+      box_lo, box_hi: (C, 3) f32 cluster boxes (checked, unused here: they
+        feed the kernel's per-warp box skip, which changes no result but in
+        the deep-cancellation case warp_box_skip names).
 
-    Returns (t, slot, visits): (R,) f32 best t (row 10 where nothing
-    nearer), (R,) i32 winning padded slot cid*128 + row or -1, (B,) i32
-    clusters tested per block. Ties keep the lower row, then the earlier
-    visit. Works block chunk by block chunk to bound memory. Products and
-    sums round one at a time in the order the CUDA kernel uses, so on the
-    card both give the same bits.
+    Returns (t, slot, visits, warp_visits): (R,) f32 best t (row 10 where
+    nothing nearer), (R,) i32 winning padded slot cid*128 + row or -1, (B,)
+    i32 clusters tested per block, and (B,) i32 warp visits per block (8 per
+    cluster tested: no warp skips here). Ties keep the lower row, then the
+    earlier visit. Works block chunk by block chunk to bound memory.
     """
-    _check_hit_inputs(cand, count, tnear, rayf, feat)
+    _check_hit_inputs(cand, count, tnear, rayf, feat, box_lo, box_hi)
     t_best = rayf[_FEAT_USED].clone()
     best = torch.full_like(t_best, -1, dtype=torch.int32)
-    visits = walk_candidates_plain(cand, count, rayf, cluster_major(feat),
-                                   visit_plain, t_best, best, chunk_blocks)
-    return t_best, best, visits
+    visits, warp_visits = walk_candidates_plain(
+        cand, count, rayf, feat, visit_split_plain, t_best, best,
+        chunk_blocks)
+    return t_best, best, visits, warp_visits
 
 
 def walk_candidates_plain(cand, count, rayf, by_cluster, visit, t_best, best,
-                          chunk_blocks: int = 256) -> torch.Tensor:
+                          chunk_blocks: int = 256, boxes=None) -> tuple:
     """Every valid candidate of every block, in order, with no early exit:
     updates the (R,) t_best (f32) and best (i32) in place and returns the
-    (B,) i32 clusters tested per block (count clamped to K). Only blocks
-    with candidates are computed, `chunk_blocks` at a time. `visit` tests
-    a cluster of `by_cluster`, the table indexed by cluster id that it
-    takes: visit_plain on cluster_major(f32 table), visit_split_plain on
-    the split table."""
+    (B,) i32 clusters tested per block (count clamped to K) and the (B,) i32
+    warp visits per block. Only blocks with candidates are computed,
+    `chunk_blocks` at a time. `visit` tests a cluster of `by_cluster`, the
+    table indexed by cluster id that it takes: visit_split_plain on the
+    split table, visit_plain on cluster_major(f32 table).
+
+    With boxes = (cl_lo, cl_hi), each visit is the walk kernels' per-warp
+    cluster-box skip in plain form (warp_box_skip): the rays of a 64-ray
+    warp take the visit only when one of them crosses the cluster's box
+    before its current best t (with the skip's slack). Without, every warp
+    takes every visit.
+    """
     B, K = cand.shape
     n_cand = torch.clamp(count, min=0, max=K).to(torch.int64)
     rays = rayf[:_FEAT_USED].T.reshape(B, RAY_BLOCK, _FEAT_USED)
     t_blk = t_best.view(B, RAY_BLOCK)
     best_blk = best.view(B, RAY_BLOCK)
     n_clusters = by_cluster.shape[0]
+    warps = RAY_BLOCK // WARP_RAYS
+    warp_visits = n_cand * warps
     busy = torch.nonzero(n_cand > 0).flatten()
     for c0 in range(0, busy.shape[0], chunk_blocks):
         ib = busy[c0:c0 + chunk_blocks]
@@ -304,12 +334,53 @@ def walk_candidates_plain(cand, count, rayf, by_cluster, visit, t_best, best,
         nc = n_cand[ib]
         tb = t_blk[ib]
         bs = best_blk[ib]
+        taken = torch.zeros_like(nc)
         for k in range(int(nc.max())):
             cid = torch.clamp(cand[ib, k].to(torch.int64), 0, n_clusters - 1)
-            visit(r, by_cluster[cid], cid, k < nc, tb, bs)
+            on = (k < nc)[:, None]
+            if boxes is not None:
+                crossing = warp_box_skip(r, boxes[0][cid], boxes[1][cid], tb)
+                taken += (crossing & on).sum(dim=1)
+                on = on & crossing.repeat_interleave(WARP_RAYS, dim=1)
+            visit(r, by_cluster[cid], cid, on, tb, bs)
         t_blk[ib] = tb
         best_blk[ib] = bs
-    return n_cand.to(torch.int32)
+        if boxes is not None:
+            warp_visits[ib] = taken
+    return n_cand.to(torch.int32), warp_visits.to(torch.int32)
+
+
+def warp_box_skip(r, lo, hi, t_best) -> torch.Tensor:
+    """The walk kernels' per-warp cluster-box test (csrc/visit_mma.cuh:
+    warp_crosses) in plain form. r: (Bc, L, 10) ray features; lo, hi:
+    (Bc, 3) the box of each block's visited cluster; t_best: (Bc, L) the
+    rays' current best t. Returns (Bc, L // 64) bool: whether some ray of
+    each 64-ray warp crosses the box, inflated as ray_cluster_mask inflates
+    it, within [T_MIN, its t_best * SKIP_T_SLACK] (ray_cluster_mask's slab
+    test).
+
+    A triangle whose exact hit is nearer than that lies inside the box. The
+    slack covers the split product's error in t: at an edge two clusters
+    share, the first one's split t may lie a little before the exact hit,
+    and so before the second one's box, whose triangle the walk without the
+    skip would still test and might take at a split t nearer still. The
+    split's q errs by about 2^-17 of its terms' magnitudes, so its t errs by
+    far less than 2^-12 unless det or t*det cancel deeply: only such a hit,
+    at such a seam, could be skipped where the walk without the skip takes
+    it."""
+    lo, hi = _inflate(lo, hi)
+    o = r[:, :, 6:9]
+    inv = _safe_inverse(r[:, :, 0:3])
+    t_in = torch.full_like(t_best, -torch.inf)
+    t_out = torch.full_like(t_best, torch.inf)
+    for ax in range(3):
+        t0 = (lo[:, ax, None] - o[:, :, ax]) * inv[:, :, ax]
+        t1 = (hi[:, ax, None] - o[:, :, ax]) * inv[:, :, ax]
+        t_in = torch.maximum(t_in, torch.minimum(t0, t1))
+        t_out = torch.minimum(t_out, torch.maximum(t0, t1))
+    crossed = (t_out >= torch.clamp(t_in, min=C.T_MIN)) \
+        & (t_in <= t_best * SKIP_T_SLACK)
+    return crossed.view(crossed.shape[0], -1, WARP_RAYS).any(dim=2)
 
 
 def cluster_major(feat: torch.Tensor) -> torch.Tensor:
@@ -319,21 +390,14 @@ def cluster_major(feat: torch.Tensor) -> torch.Tensor:
                                      CLUSTER_COLS).permute(1, 0, 2)
 
 
-def check_table(feat: torch.Tensor, split: bool) -> None:
-    """Raises ValueError unless feat is the (C, 512, 32) bf16 split table
-    (split) or the (16, C*512) f32 table (not split), C >= 1."""
-    if split:
-        ok = (feat.dtype == torch.bfloat16 and feat.dim() == 3
-              and feat.shape[0] > 0
-              and tuple(feat.shape[1:]) == (CLUSTER_COLS, SPLIT_K))
-        want = f"bfloat16 (C, {CLUSTER_COLS}, {SPLIT_K}) split"
-    else:
-        ok = (feat.dtype == torch.float32 and feat.dim() == 2
-              and feat.shape[0] == FEAT_ROWS and feat.shape[1] > 0
-              and feat.shape[1] % CLUSTER_COLS == 0)
-        want = f"float32 ({FEAT_ROWS}, C*{CLUSTER_COLS})"
-    if not ok:
-        raise ValueError(f"feat must be the {want} table with C >= 1; got "
+def check_table(feat: torch.Tensor) -> None:
+    """Raises ValueError unless feat is the (C, 512, 32) bf16 split table,
+    C >= 1: the table every visit kernel takes."""
+    if not (feat.dtype == torch.bfloat16 and feat.dim() == 3
+            and feat.shape[0] > 0
+            and tuple(feat.shape[1:]) == (CLUSTER_COLS, SPLIT_K)):
+        raise ValueError(f"feat must be the bfloat16 (C, {CLUSTER_COLS}, "
+                         f"{SPLIT_K}) split table with C >= 1; got "
                          f"{feat.dtype} {tuple(feat.shape)}")
 
 
@@ -345,15 +409,16 @@ def check_bulk_aligned(feat: torch.Tensor) -> None:
 
 
 def visit_plain(r, f, cid, enabled, t_best, best) -> None:
-    """One cluster visit per block, in place: the plain version of the
-    per-triangle test of the cluster kernel (csrc/visit.cuh).
+    """One cluster visit per block, in place, with the exact f32 product:
+    the yardstick of the split product (visit_split_plain), on no render
+    path.
 
     r: (Bc, L, 10) ray features of each block's L lanes; f: (Bc, 10, 512)
-    the visited cluster's columns; cid: (Bc,) its id; enabled: (Bc,) bool.
-    t_best (Bc, L) f32 and best (Bc, L) i32 take strictly nearer hits (ties
-    keep the lower row, then the earlier visit). Products and sums round one
-    at a time in the kernel's order, and there is no matrix product, so
-    TF32 never applies: on the card both give the same bits.
+    the visited cluster's columns; cid: (Bc,) its id; enabled: (Bc,) bool,
+    or (Bc, L) per lane. t_best (Bc, L) f32 and best (Bc, L) i32 take
+    strictly nearer hits (ties keep the lower row, then the earlier visit).
+    Products and sums round one at a time and there is no matrix product,
+    so TF32 never applies: the card gives the CPU's bits.
     """
     q = r[:, :, 0, None] * f[:, None, 0, :]  # (Bc, L, 512)
     for i in range(1, _FEAT_USED):
@@ -373,9 +438,9 @@ def stack_rays_split(r: torch.Tensor) -> torch.Tensor:
 
 def visit_split_plain(r, s, cid, enabled, t_best, best) -> None:
     """One cluster visit per block, in place, with the bf16 hi/lo split
-    product (split_product): the plain version of the stream and pair
-    kernels' visit (csrc/visit_mma.cuh) and of the reference's visit_q +
-    visit_epilogue, without its 127-ulp t encoding.
+    product (split_product): the plain version of the cluster, stream and
+    pair kernels' visit (csrc/visit_mma.cuh) and of the reference's visit_q
+    + visit_epilogue, without its 127-ulp t encoding.
 
     r: (Bc, L, 10) f32 ray features; s: (Bc, 512, 32) the visited
     cluster's split columns (accel/clusters.py:split_table); the rest, the
@@ -414,7 +479,7 @@ def visit_epilogue(q, cid, enabled, t_best, best) -> None:
              & (un + vn <= adet) & (tn > adet * C.T_MIN))
     tc = torch.where(valid, tn / torch.clamp(adet, min=1e-30), 2.0 * C.T_FAR)
     tmin, row = tc.min(dim=2)
-    better = (tmin < t_best) & enabled[:, None]
+    better = (tmin < t_best) & enabled.reshape(enabled.shape[0], -1)
     best.copy_(torch.where(better, (cid[:, None] * n + row).to(torch.int32),
                            best))
     t_best.copy_(torch.where(better, tmin, t_best))
@@ -422,31 +487,36 @@ def visit_epilogue(q, cid, enabled, t_best, best) -> None:
 
 def _kernel():
     fn = _build.load("intersect_cluster").cluster_hit_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def cluster_hit(cand, count, tnear, rayf, feat):
-    """Cluster closest hit of every ray block (see cluster_hit_plain).
+def cluster_hit(cand, count, tnear, rayf, feat, box_lo, box_hi):
+    """Cluster closest hit of every ray block (see cluster_hit_plain) on the
+    split table `feat` (Geometry.cl_feat_split) and its clusters' boxes.
 
     CPU tensors run the plain version. CUDA tensors launch the CUDA kernel
     (built at first use) on the current stream, with the ordered early
-    exit, and count the launch in LAUNCHES; a failed launch raises.
-    Returns (t, slot, visits) as cluster_hit_plain does, except that
-    visits counts the clusters the early-exiting walk actually tested.
-    An autograd boundary (ops/boundary.py): no gradient flows back.
+    exit and the per-warp cluster-box skip, and count the launch in
+    LAUNCHES; a failed launch raises. Returns (t, slot, visits,
+    warp_visits) as cluster_hit_plain does, except that visits counts the
+    clusters the early-exiting walk actually staged and warp_visits the
+    visits its warps computed. An autograd boundary (ops/boundary.py): no
+    gradient flows back.
     """
-    return no_gradient(_cluster_hit, cand, count, tnear, rayf, feat)
+    return no_gradient(_cluster_hit, cand, count, tnear, rayf, feat, box_lo,
+                       box_hi)
 
 
-def _cluster_hit(cand, count, tnear, rayf, feat):
+def _cluster_hit(cand, count, tnear, rayf, feat, box_lo, box_hi):
     global LAUNCHES
-    _check_hit_inputs(cand, count, tnear, rayf, feat)
+    _check_hit_inputs(cand, count, tnear, rayf, feat, box_lo, box_hi)
     dev = rayf.device
     if dev.type == "cpu":
-        return cluster_hit_plain(cand, count, tnear, rayf, feat)
+        return cluster_hit_plain(cand, count, tnear, rayf, feat, box_lo,
+                                 box_hi)
     if dev.type != "cuda":
         raise ValueError(f"cluster_hit runs on cpu or cuda, not {dev}")
     B, K = cand.shape
@@ -454,21 +524,24 @@ def _cluster_hit(cand, count, tnear, rayf, feat):
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     slot = torch.empty((R,), dtype=torch.int32, device=dev)
     visits = torch.empty((B,), dtype=torch.int32, device=dev)
+    warp_visits = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
-        return t, slot, visits
+        return t, slot, visits, warp_visits
+    check_bulk_aligned(feat)
     launch = _kernel()
     with torch.cuda.device(dev):
         err = launch(
             cand.data_ptr(), count.data_ptr(), tnear.data_ptr(),
-            rayf.data_ptr(), feat.data_ptr(), t.data_ptr(), slot.data_ptr(),
-            visits.data_ptr(), B, K, feat.shape[1] // CLUSTER_COLS, R,
-            torch.cuda.current_stream(dev).cuda_stream,
+            rayf.data_ptr(), feat.data_ptr(), box_lo.data_ptr(),
+            box_hi.data_ptr(), t.data_ptr(), slot.data_ptr(),
+            visits.data_ptr(), warp_visits.data_ptr(), B, K, feat.shape[0],
+            R, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"cluster_hit kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
-    return t, slot, visits
+    return t, slot, visits, warp_visits
 
 
 def _pad_rays(o, d, t_max):
@@ -532,6 +605,8 @@ def closest_hit_cluster(geom, o, d, t_max=None, use_cull: bool = True):
                            device=o.device)
         tnear = torch.full((B, n_clusters), -torch.inf, dtype=torch.float32,
                            device=o.device)
-    t_best, slot, _ = cluster_hit(cand, count, tnear, rayf, geom.cl_feat)
+    t_best, slot, _, _ = cluster_hit(cand, count, tnear, rayf,
+                                     geom.cl_feat_split, geom.cl_lo,
+                                     geom.cl_hi)
     t_out, n_best, m_best = decode_winner(geom, slot[:R0], t_best[:R0])
     return merge_spheres(geom, o, d, t_out, n_best, m_best)

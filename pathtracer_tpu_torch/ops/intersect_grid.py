@@ -279,7 +279,7 @@ def _check_pair_inputs(offsets, cand, pair_ray, rayf, feat, pair_block):
     if rayf.shape[0] != RAY_FEATS or (P and rayf.shape[1] == 0):
         raise ValueError(f"rayf must be ({RAY_FEATS}, R) with R >= 1; got "
                          f"{tuple(rayf.shape)}")
-    check_table(feat, split=True)
+    check_table(feat)
     for name, x in (("offsets", offsets), ("cand", cand),
                     ("pair_ray", pair_ray), ("rayf", rayf), ("feat", feat)):
         if x.device != rayf.device:

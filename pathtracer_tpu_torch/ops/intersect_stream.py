@@ -23,13 +23,13 @@ parts:
       split table (``Geometry.cl_feat_split``): each visit's product is the
       reference's bf16 hi/lo split, as its kernel computes it. On a CUDA
       tensor it launches the hand-written kernel in
-      ``csrc/intersect_stream.cu``; on a CPU tensor it runs
+      ``csrc/intersect_stream.cu`` (the cluster kernel's walk, with its
+      per-warp cluster-box skip); on a CPU tensor it runs
       ``stream_hit_plain``, which tests every windowed candidate.
 
 Contract: that of intersect_cluster.closest_hit_cluster, (t, n_geom, mat)
 with t == T_FAR on a miss and the optional per-ray t_max bound, at the
-reference's split-product tolerance: t may differ from the f32 cluster
-route's in the last bits.
+reference's split-product tolerance.
 """
 
 from __future__ import annotations
@@ -64,8 +64,9 @@ ROUND_CAND = 256
 LAUNCHES = 0
 
 
-def _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat):
-    _check_hit_inputs(cand, count, tnear, rayf, feat, split=True)
+def _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat,
+                         box_lo, box_hi):
+    _check_hit_inputs(cand, count, tnear, rayf, feat, box_lo, box_hi)
     R = rayf.shape[1]
     for name, x, dtype in (("t_in", t_in, torch.float32),
                            ("slot_in", slot_in, torch.int32)):
@@ -78,7 +79,8 @@ def _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat):
             raise ValueError(f"{name} must be contiguous")
 
 
-def stream_hit_plain(cand, count, tnear, rayf, t_in, slot_in, feat):
+def stream_hit_plain(cand, count, tnear, rayf, t_in, slot_in, feat, box_lo,
+                     box_hi):
     """Plain PyTorch version of the stream kernel's contract.
 
     Args:
@@ -91,48 +93,59 @@ def stream_hit_plain(cand, count, tnear, rayf, t_in, slot_in, feat):
       t_in, slot_in: (R,) f32 / i32 carried best t and padded slot.
       feat: (C, 512, 32) bf16 split table: each visit is the split product
         (intersect_cluster.visit_split_plain).
+      box_lo, box_hi: (C, 3) f32 cluster boxes (checked, unused here: they
+        feed the kernel's per-warp box skip, which changes no result but in
+        the deep-cancellation case intersect_cluster.warp_box_skip names).
 
-    Returns (t, slot, visits): the new (R,) best t and slot (strictly
-    nearer hits only; ties keep the lower row, then the earlier visit) and
-    the (B,) i32 clusters tested per block.
+    Returns (t, slot, visits, warp_visits): the new (R,) best t and slot
+    (strictly nearer hits only; ties keep the lower row, then the earlier
+    visit), the (B,) i32 clusters tested per block and the (B,) i32 warp
+    visits per block (8 per cluster tested).
     """
-    _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat)
+    _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat,
+                         box_lo, box_hi)
     t = t_in.clone()
     slot = slot_in.clone()
-    visits = walk_candidates_plain(cand, count, rayf, feat, visit_split_plain,
-                                   t, slot)
-    return t, slot, visits
+    visits, warp_visits = walk_candidates_plain(
+        cand, count, rayf, feat, visit_split_plain, t, slot)
+    return t, slot, visits, warp_visits
 
 
 def _kernel():
     fn = _build.load("intersect_stream").stream_hit_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def stream_hit(cand, count, tnear, rayf, t_in, slot_in, feat):
+def stream_hit(cand, count, tnear, rayf, t_in, slot_in, feat, box_lo,
+               box_hi):
     """One round of every block's walk (see stream_hit_plain) on the split
-    table `feat` (Geometry.cl_feat_split).
+    table `feat` (Geometry.cl_feat_split) and its clusters' boxes.
 
     CPU tensors run the plain version. CUDA tensors launch the CUDA kernel
     (built at first use) on the current stream, with the ordered early
-    exit, and count the launch in LAUNCHES; a failed launch raises.
-    Returns (t, slot, visits) as stream_hit_plain does, except that visits
-    counts the clusters the early-exiting walk actually tested.
-    An autograd boundary (ops/boundary.py): no gradient flows back.
+    exit and the per-warp cluster-box skip, and count the launch in
+    LAUNCHES; a failed launch raises. Returns (t, slot, visits,
+    warp_visits) as stream_hit_plain does, except that visits counts the
+    clusters the early-exiting walk actually staged and warp_visits the
+    visits its warps computed. An autograd boundary (ops/boundary.py): no
+    gradient flows back.
     """
     return no_gradient(_stream_hit, cand, count, tnear, rayf, t_in, slot_in,
-                       feat)
+                       feat, box_lo, box_hi)
 
 
-def _stream_hit(cand, count, tnear, rayf, t_in, slot_in, feat):
+def _stream_hit(cand, count, tnear, rayf, t_in, slot_in, feat, box_lo,
+                box_hi):
     global LAUNCHES
-    _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat)
+    _check_stream_inputs(cand, count, tnear, rayf, t_in, slot_in, feat,
+                         box_lo, box_hi)
     dev = rayf.device
     if dev.type == "cpu":
-        return stream_hit_plain(cand, count, tnear, rayf, t_in, slot_in, feat)
+        return stream_hit_plain(cand, count, tnear, rayf, t_in, slot_in, feat,
+                                box_lo, box_hi)
     if dev.type != "cuda":
         raise ValueError(f"stream_hit runs on cpu or cuda, not {dev}")
     B, K = cand.shape
@@ -140,23 +153,25 @@ def _stream_hit(cand, count, tnear, rayf, t_in, slot_in, feat):
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     slot = torch.empty((R,), dtype=torch.int32, device=dev)
     visits = torch.empty((B,), dtype=torch.int32, device=dev)
+    warp_visits = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
-        return t, slot, visits
+        return t, slot, visits, warp_visits
     check_bulk_aligned(feat)
     launch = _kernel()
     with torch.cuda.device(dev):
         err = launch(
             cand.data_ptr(), count.data_ptr(), tnear.data_ptr(),
             rayf.data_ptr(), t_in.data_ptr(), slot_in.data_ptr(),
-            feat.data_ptr(), t.data_ptr(), slot.data_ptr(), visits.data_ptr(),
-            B, K, feat.shape[0], R,
+            feat.data_ptr(), box_lo.data_ptr(), box_hi.data_ptr(),
+            t.data_ptr(), slot.data_ptr(), visits.data_ptr(),
+            warp_visits.data_ptr(), B, K, feat.shape[0], R,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"stream_hit kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
-    return t, slot, visits
+    return t, slot, visits, warp_visits
 
 
 def closest_hit_stream(geom, o, d, max_cand: int = ROUND_CAND, t_max=None):
@@ -203,10 +218,10 @@ def closest_hit_stream(geom, o, d, max_cand: int = ROUND_CAND, t_max=None):
             break
         start = r * K
         cnt_r = torch.where(resolved, 0, torch.clamp(count - start, 0, K))
-        t_cur, slot_cur, _ = stream_hit(
+        t_cur, slot_cur, _, _ = stream_hit(
             cand[:, start:start + K].contiguous(), cnt_r.to(torch.int32),
             tnear[:, start:start + K].contiguous(), rayf, t_cur, slot_cur,
-            geom.cl_feat_split)
+            geom.cl_feat_split, geom.cl_lo, geom.cl_hi)
         cap = tnear[:, start + K]
         worst = t_cur.view(B, RAY_BLOCK).max(dim=1).values
         resolved = resolved | (worst <= cap) | (count <= start + K)

@@ -3,7 +3,8 @@ reference's Pallas kernel in interpret mode and against brute force.
 
 The bar is the reference's own (tests/unit/test_cluster.py): equal hit
 masks, t at rtol 4e-3 / atol 2e-4 with the 99th-percentile error below
-2e-5, and at least 0.999 of materials and normals agreeing. The glue that
+2e-5, and at least 0.999 of materials and normals agreeing; both packages'
+cluster routes compute the bf16 hi/lo split product. The glue that
 is plain array code in both packages (exit bound, ray features, culls,
 candidate lists) must agree exactly, or to 1e-6 where XLA may fuse.
 """
@@ -85,6 +86,11 @@ def test_matches_reference_kernel(mesh_pair):
     t_c, n_c, m_c = ic.closest_hit_cluster(g, _t(o), _t(d))
     _assert_reference_bar(t_r, n_r, m_r, t_c.numpy(), n_c.numpy(),
                           m_c.numpy())
+    # Both compute the split product: t agrees to the reference's 127-ulp
+    # encoding of it.
+    hit = np.asarray(t_r) < C.T_FAR * 0.5
+    np.testing.assert_allclose(t_c.numpy()[hit], np.asarray(t_r)[hit],
+                               rtol=2e-5, atol=0.0)
 
 
 def test_port_brute_matches_reference_brute(mesh_pair):
@@ -215,16 +221,18 @@ def test_cluster_hit_plain_visits_every_candidate(mesh_pair):
     rayf = ic.ray_features(_t(o), _t(d), t_exit)
     cand, count, tnear = ic.cull_candidates(g.cl_lo, g.cl_hi, _t(o), _t(d),
                                             t_max=t_exit)
-    t, slot, visits = ic.cluster_hit_plain(cand, count, tnear, rayf,
-                                           g.cl_feat)
+    tables = (g.cl_feat_split, g.cl_lo, g.cl_hi)
+    t, slot, visits, warp_visits = ic.cluster_hit_plain(cand, count, tnear,
+                                                        rayf, *tables)
     assert visits.tolist() == count.tolist()
+    assert warp_visits.tolist() == (8 * count).tolist()  # no warp skips
     assert t.shape == (512,) and slot.dtype == torch.int32
     # A miss keeps its initial bound and reports slot -1.
     miss = slot < 0
     assert torch.equal(t[miss], t_exit[miss])
     # Block chunking does not change the result.
-    t2, slot2, _ = ic.cluster_hit_plain(cand, count, tnear, rayf, g.cl_feat,
-                                        chunk_blocks=1)
+    t2, slot2, _, _ = ic.cluster_hit_plain(cand, count, tnear, rayf, *tables,
+                                           chunk_blocks=1)
     assert torch.equal(t, t2) and torch.equal(slot, slot2)
 
 
@@ -235,15 +243,21 @@ def test_cluster_hit_rejects_bad_inputs(mesh_pair):
     count = torch.zeros((B,), dtype=torch.int32)
     tnear = torch.zeros((B, K))
     rayf = torch.zeros((ic.RAY_FEATS, B * ic.RAY_BLOCK))
-    ok = (cand, count, tnear, rayf, g.cl_feat)
+    split, lo, hi = g.cl_feat_split, g.cl_lo, g.cl_hi
+    ok = (cand, count, tnear, rayf, split, lo, hi)
     ic.cluster_hit(*ok)
     bad = [
-        (cand.long(), count, tnear, rayf, g.cl_feat),
-        (cand, count, tnear, rayf[:, :-1], g.cl_feat),
-        (cand, count, tnear.double(), rayf, g.cl_feat),
-        (cand, count, tnear, rayf, g.cl_feat[:, :100]),
-        (cand.T.contiguous().T, count, tnear, rayf, g.cl_feat),
-        (cand, count, tnear, rayf, g.cl_feat.to("meta")),
+        (cand.long(), count, tnear, rayf, split, lo, hi),
+        (cand, count, tnear, rayf[:, :-1], split, lo, hi),
+        (cand, count, tnear.double(), rayf, split, lo, hi),
+        (cand, count, tnear, rayf, split[:, :100], lo, hi),
+        (cand.T.contiguous().T, count, tnear, rayf, split, lo, hi),
+        (cand, count, tnear, rayf, split.to("meta"), lo, hi),
+        # The f32 table: the kernel takes the split one.
+        (cand, count, tnear, rayf, g.cl_feat, lo, hi),
+        (cand, count, tnear, rayf, split, lo[:-1], hi),
+        (cand, count, tnear, rayf, split, lo, hi.double()),
+        (cand, count, tnear, rayf, split, lo, hi.T.contiguous().T),
     ]
     for args in bad:
         with pytest.raises(ValueError):

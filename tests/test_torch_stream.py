@@ -119,17 +119,14 @@ def test_small_window_equals_full_window(mesh_pair):
     np.testing.assert_allclose(small[0].numpy(), full[0].numpy(), rtol=1e-6,
                                atol=1e-6)
     assert torch.equal(small[2], full[2])
-    # The cluster route walks the same candidates in one window, with the
-    # f32 product where the stream route takes the split one: the
-    # reference's stream-vs-dense comparison (tests/unit/test_stream.py),
-    # t at the split product's bar (rtol 4e-3 / atol 2e-4), hit masks and
-    # materials equal.
+    # The cluster route walks the same candidates in one window with the
+    # same split product (the reference's stream-vs-dense comparison,
+    # tests/unit/test_stream.py): its culls drop only clusters that no ray
+    # of a block crosses, so the result is the same, bit for bit.
     cluster = ic.closest_hit_cluster(scene.geometry, _t(o), _t(d))
-    hit = full[0] < C.T_FAR * 0.5
-    assert torch.equal(cluster[0] < C.T_FAR * 0.5, hit)
-    torch.testing.assert_close(full[0], cluster[0], rtol=4e-3, atol=2e-4)
-    assert torch.equal(full[2], cluster[2])
-    assert not torch.equal(full[0][hit], cluster[0][hit])  # the split shows
+    assert (full[0] < C.T_FAR * 0.5).float().mean() > 0.3
+    for got, want in zip(cluster, full):
+        assert torch.equal(got, want)
 
 
 def test_t_max_contract(mesh_pair):
@@ -210,21 +207,25 @@ def test_stream_hit_contract(mesh_pair):
     count[1] = 0
     t_in = t_exit.clone()
     slot_in = torch.full((1024,), -1, dtype=torch.int32)
+    boxes = (g.cl_lo, g.cl_hi)
     launches = st.LAUNCHES
-    t, slot, visits = st.stream_hit(cand, count, tnear, rayf, t_in, slot_in,
-                                    split)
+    t, slot, visits, warp_visits = st.stream_hit(cand, count, tnear, rayf,
+                                                 t_in, slot_in, split, *boxes)
     assert st.LAUNCHES == launches, "CPU tensors never launch the kernel"
     assert visits.tolist() == [int(count[0]), 0]
+    assert warp_visits.tolist() == [8 * int(count[0]), 0]
     assert torch.equal(t[512:], t_in[512:]) and (slot[512:] == -1).all()
     assert (slot[:512] >= 0).any() and torch.equal(t_in, t_exit)
-    ok = (cand, count, tnear, rayf, t_in, slot_in, split)
+    ok = (cand, count, tnear, rayf, t_in, slot_in, split, *boxes)
     bad = [
-        (cand, count, tnear, rayf, t_in.double(), slot_in, split),
-        (cand, count, tnear, rayf, t_in, slot_in[:-1], split),
-        (cand, count, tnear, rayf, t_in, slot_in.long(), split),
-        (cand.long(), count, tnear, rayf, t_in, slot_in, split),
-        (cand, count, tnear, rayf, t_in, slot_in.to("meta"), split),
-        (cand, count, tnear, rayf, t_in, slot_in, g.cl_feat),
+        (cand, count, tnear, rayf, t_in.double(), slot_in, split, *boxes),
+        (cand, count, tnear, rayf, t_in, slot_in[:-1], split, *boxes),
+        (cand, count, tnear, rayf, t_in, slot_in.long(), split, *boxes),
+        (cand.long(), count, tnear, rayf, t_in, slot_in, split, *boxes),
+        (cand, count, tnear, rayf, t_in, slot_in.to("meta"), split, *boxes),
+        (cand, count, tnear, rayf, t_in, slot_in, g.cl_feat, *boxes),
+        (cand, count, tnear, rayf, t_in, slot_in, split, g.cl_lo[:2],
+         g.cl_hi),
     ]
     st.stream_hit(*ok)
     for args in bad:

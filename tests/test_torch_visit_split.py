@@ -190,23 +190,16 @@ def test_visit_split_plain_matches_visit_plain(geoms, rays):
 
 
 def test_table_kinds_and_empty_tables():
-    """check_table takes each table where it is named and rejects the other
-    and anything malformed; a scene without clusters carries an empty
-    split table."""
+    """check_table takes the split table and rejects the f32 table and
+    anything malformed; a scene without clusters carries an empty split
+    table."""
     g = clusters.with_clusters(builder.cornell_mesh()).geometry
-    ic.check_table(g.cl_feat_split, split=True)
-    ic.check_table(g.cl_feat, split=False)
+    ic.check_table(g.cl_feat_split)
     for bad in (g.cl_feat_split.float(), g.cl_feat_split[:, :256],
-                g.cl_feat_split[:0]):
+                g.cl_feat_split[:0], g.cl_feat, g.cl_feat[:10],
+                g.cl_feat.double(), g.cl_feat[:, :100]):
         with pytest.raises(ValueError, match="split"):
-            ic.check_table(bad, split=True)
-    for bad in (g.cl_feat[:10], g.cl_feat.double(), g.cl_feat[:, :100]):
-        with pytest.raises(ValueError, match="float32"):
-            ic.check_table(bad, split=False)
-    with pytest.raises(ValueError, match="split"):
-        ic.check_table(g.cl_feat, split=True)
-    with pytest.raises(ValueError, match="float32"):
-        ic.check_table(g.cl_feat_split, split=False)
+            ic.check_table(bad)
     assert tuple(clusters.split_table(np.zeros((16, 0), np.float32))
                  .shape) == (0, 512, 32)
     empty = model.make_geometry(np.zeros((1, 3, 3), np.float32),
