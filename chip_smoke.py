@@ -10,16 +10,20 @@ script's shapes and at full width on the bench table, timed beside their
 bounds and a library call; the cluster, pair and stream kernels, whose
 visit is the split product on the tensor cores, also against the f32
 product at the reference's bar, the cluster kernel on bounce 0's and
-bounce 1's queries), runs the probe entry point, renders the golden
-scenes through the cluster, grid, BVH and stream routes and compares them
-with ``tests/golden``, then drives every path at full size: the ``bench``
+bounce 1's queries; the BVH walk, K4, against both of its plain versions,
+bit for bit against its mirror and at the reference's bar against the
+skip-link walk, on config 3's bounce-0 queries and config 5's bounce-0
+and bounce-1 ones), runs the probe entry point, renders the golden scenes
+through the cluster, grid, BVH and stream routes and compares them with
+``tests/golden``, then drives every path at full size: the ``bench``
 preset (cornell_mesh, cluster route, K1; its frame also against the BVH
 walk's image, and each of its 8 K1 calls timed) and the same scene through
 the BVH walk (K4); ``config2`` and ``config3`` (the BVH walk, K4);
 ``config5`` (big_mesh, 2M triangles, grid route, K2) and the same scene
 through the BVH walk (K4) and through the stream route (K3), each rendered
-and timed; a value-and-grad step of the full bench frame through K1 and
-through K4; and material gradients against central differences. Every
+and timed, the grid's and the stream's frames also against the same-seed
+frame through K4; a value-and-grad step of the full bench frame through
+K1 and through K4; and material gradients against central differences. Every
 phase either passes or raises; the last line of standard output is
 ``{"ok": true, "device": {...}}`` only when all passed. There is no CPU
 path: without a CUDA device the script fails at once.
@@ -151,11 +155,16 @@ OPS_PER_TRI_TEST = 82
 # operations (four sign multiplies, u + v, |det| * T_MIN) on the CUDA cores.
 TC_OPS_PER_TRI_TEST = 4 * 30 * 2
 EPILOGUE_OPS_PER_TRI_TEST = 6
-# f32 operations per BVH node visit of traverse_bvh.cu: two slab
+# f32 operations per box test of traverse_bvh.cu (two per pair entry the
+# walk fetches: entry 0 tests the root and a box no ray hits): two slab
 # differences and products per axis (12), their min and max (6), the
-# entry/exit reductions (4) and two compares (leaf triangle tests are not
-# counted: the kernel does not report them).
+# entry/exit reductions (4) and two compares.
 OPS_PER_NODE = 24
+# f32 operations per Moller-Trumbore test of traverse_bvh.cu:tri_test:
+# three cross terms for pvec (9), det (5), its reciprocal (1), tvec (3),
+# u (5 + 1), three cross terms for qvec (9), v (5 + 1), t (5 + 1) and
+# u + v (1); compares not counted.
+OPS_PER_MT_TEST = 46
 
 
 def check(cond: bool, what: str) -> None:
@@ -589,57 +598,114 @@ def phase_k1_frame(scene, device, card: str) -> None:
 
 
 def record_bvh_queries(scene, cfg, pixel_ids):
-    """The (o, d) the BVH route hands to bvh_hit for bounce 0: its
-    closest-hit query and its NEE shadow query."""
+    """The (o, d) the BVH route hands to bvh_hit over `cfg`'s bounces: per
+    bounce its closest-hit query, then its NEE shadow query."""
     calls = []
     real = tb.bvh_hit
 
-    def recording(nodes, tris, o, d, max_leaf=4):
+    def recording(nodes, pairs, tris, o, d, max_leaf=4):
         calls.append((o, d))
-        return real(nodes, tris, o, d, max_leaf)
+        return real(nodes, pairs, tris, o, d, max_leaf)
 
     tb.bvh_hit = recording
     try:
-        trace_bounce0(scene, cfg, pixel_ids)
+        wavefront.trace_sample(scene.geometry, scene.materials, scene.camera,
+                               scene.lights, cfg, pixel_ids, 0)
     finally:
         tb.bvh_hit = real
     return calls
 
 
-def phase_bvh_vs_plain(label, scene, cfg, n_pixels, device, out) -> None:
-    """K4 against its plain walk on the bounce-0 queries of `cfg` (a BVH
-    route) over the first n_pixels tile-ordered pixels."""
+def k4_bytes(g, seen, *arrays) -> int:
+    """Bytes of one bvh_hit call: the distinct pair entries and triangles
+    its walks read (`seen`, from bvh_hit_ordered_plain), once each, and the
+    rays and outputs."""
+    return (int(seen[0].sum()) * nbytes(g.bvh_pairs[0])
+            + int(seen[1].sum()) * nbytes(g.bvh_tris[0]) + nbytes(*arrays))
+
+
+def phase_bvh_vs_plain(label, scene, cfg, n_pixels, device, out,
+                       depth: int = 1) -> None:
+    """K4 on the queries of `cfg` (a BVH route) over the first n_pixels
+    tile-ordered pixels, bounces 0 to depth - 1, against both plain
+    versions: bit for bit (t, triangle, per-block visits and triangle
+    tests) against its mirror bvh_hit_ordered_plain, and at the
+    reference's bar against the skip-link walk bvh_hit_plain (equal hit
+    masks, t bit-equal where the same triangle wins, within T_RTOL / T_ATOL
+    and materials equal where t is equal). Timed beside the plain walk and
+    the bound on the distinct entries and triangles the walks read; bounce
+    0's calls add to `out` (the kernels line), later ones are printed."""
     g = scene.geometry
     ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width,
                           device=device)[:n_pixels]
-    queries = record_bvh_queries(scene, cfg, ids)
-    check(len(queries) == 2, f"{label}: bounce 0 made {len(queries)} BVH "
-          "queries, expected 2 (closest hit + shadow)")
-    for name, (o, d) in zip(("closest", "shadow"), queries):
+    queries = record_bvh_queries(scene, cfg.replace(max_depth=depth), ids)
+    check(len(queries) == 2 * depth, f"{label}: bounces 0-{depth - 1} made "
+          f"{len(queries)} BVH queries, expected {2 * depth} (closest hit + "
+          "shadow each)")
+    tables = (g.bvh_nodes, g.bvh_pairs, g.bvh_tris)
+    whole_ms = 0.0
+    for i, (o, d) in enumerate(queries):
+        name = f"{label} {query_label(i)}"
         R = o.shape[0]
         n0 = tb.LAUNCHES
-        t_k, s_k, v_k = tb.bvh_hit(g.bvh_nodes, g.bvh_tris, o, d)
+        outs = tb.bvh_hit(*tables, o, d)
         torch.cuda.synchronize()
         check(tb.LAUNCHES == n0 + 1, "bvh_hit launched the kernel")
+        t_k, s_k, v_k, n_k = outs
+        seen = (torch.zeros(g.bvh_pairs.shape[0], dtype=torch.bool,
+                            device=device),
+                torch.zeros(g.bvh_tris.shape[0], dtype=torch.bool,
+                            device=device))
         t0 = time.perf_counter()
-        t_p, s_p, v_p = tb.bvh_hit_plain(g.bvh_nodes, g.bvh_tris, o, d,
-                                         chunk=R)
+        mirror = tb.bvh_hit_ordered_plain(g.bvh_pairs, g.bvh_tris, o, d,
+                                          chunk=R, seen=seen)
+        torch.cuda.synchronize()
+        mirror_ms = (time.perf_counter() - t0) * 1e3
+        for what, x, y in zip(("t", "triangle", "visits", "tests"), outs,
+                              mirror):
+            check(torch.equal(x, y), f"{name}: {what} differs from "
+                  "bvh_hit_ordered_plain's")
+        t0 = time.perf_counter()
+        t_p, s_p, v_p, n_p = tb.bvh_hit_plain(g.bvh_nodes, g.bvh_tris, o, d,
+                                              chunk=R)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        err = compare_hits(f"{label} {name}", t_k, s_k, t_p, s_p, g.tri_mat)
-        bound = add_bound(out, nbytes(g.bvh_nodes, g.bvh_tris, o, d, t_k,
-                                      s_k, v_k),
-                          int(v_k.to(torch.int64).sum()) * OPS_PER_NODE)
-        ms = cuda_ms(lambda: tb.bvh_hit(g.bvh_nodes, g.bvh_tris, o, d), 20)
-        print(f"[kernel] bvh_hit {label} {name} query: {R} rays, "
-              f"{g.bvh_nodes.shape[0]} nodes, {int((s_k >= 0).sum())} hits, "
-              f"nodes visited per ray kernel {v_k.sum().item() / R:.2f} "
-              f"plain {v_p.sum().item() / R:.2f} (per-block visits equal "
-              f"{bool(torch.equal(v_k, v_p))}); hit masks equal, t max abs "
-              f"err {err:.3g}, t bit-equal {bool(torch.equal(t_k, t_p))}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms")
-        add_totals(out, ms, plain_ms, err)
+        err = compare_hits(name, t_k, s_k, t_p, s_p, g.tri_mat)
+        changed = s_k != s_p
+        check(torch.equal(t_k[~changed], t_p[~changed]),
+              f"{name}: t differs from the skip-link walk's where the same "
+              "triangle wins")
+        same_t = (s_k >= 0) & (t_k == t_p)
+        check(torch.equal(g.tri_mat[s_k[same_t].long()],
+                          g.tri_mat[s_p[same_t].long()]),
+              f"{name}: materials differ where t is equal")
+        n_bytes = k4_bytes(g, seen, o, d, *outs)
+        n_ops = (2 * int(v_k.to(torch.int64).sum()) * OPS_PER_NODE
+                 + int(n_k.to(torch.int64).sum()) * OPS_PER_MT_TEST)
+        totals = out if i < 2 and out is not None else new_totals()
+        bound = add_bound(totals, n_bytes, n_ops)
+        whole_ms += nbytes(g.bvh_nodes, g.bvh_tris, o, d, t_k, s_k, v_k) \
+            / PEAK_BYTES * 1e3
+        ms = cuda_ms(lambda: tb.bvh_hit(*tables, o, d), 20)
+        print(f"[kernel] bvh_hit {name} query: {R} rays, "
+              f"{g.bvh_pairs.shape[0]} pair entries, {int((s_k >= 0).sum())} "
+              f"hits; per ray: pair fetches {v_k.sum().item() / R:.3f} (box "
+              f"tests {2 * v_k.sum().item() / R:.3f}), skip-link node visits "
+              f"{v_p.sum().item() / R:.3f}; triangle tests "
+              f"{n_k.sum().item() / R:.3f}, skip-link "
+              f"{n_p.sum().item() / R:.3f}; t, triangle, visits and tests "
+              f"bit-equal to bvh_hit_ordered_plain; vs the skip-link walk: "
+              f"hit masks equal, {int(changed.sum())} winners changed, t max "
+              f"abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms (mirror {mirror_ms:.4f} ms), bound {bound:.4f} ms "
+              f"({int(seen[0].sum())} entries and {int(seen[1].sum())} "
+              f"triangles read, {n_bytes / 1e6:.2f} MB; {n_ops:.4g} f32 "
+              f"operations)")
+        if totals is out:
+            add_totals(out, ms, plain_ms, err)
+    print(f"[kernel] bvh_hit {label}: counting both whole tables (nodes and "
+          f"triangles) as read by every call, the bound would be "
+          f"{whole_ms:.4f} ms over these {len(queries)} calls")
 
 
 def record_pair_queries(scene, cfg, pixel_ids):
@@ -908,17 +974,31 @@ def phase_main_path(scene, device, card: str) -> int:
           f"{cfg.max_depth}: mean {mean:.6f}, launches {counts}")
     # The same seed through the BVH walk (K4, the f32 product): the split
     # product's effect on the main path's image.
-    bvh = pt.render(scene, cfg.replace(backend="jnp"))
-    diff = (img - bvh).abs()
-    bad = (diff > ENGINE_BAR + ENGINE_BAR * bvh.abs()).any(-1).float().mean()
-    print(f"[main] render(bench) via K1 vs via K4: max abs diff "
-          f"{diff.max().item():.3g}, bad-pixel share {bad.item():.6f} (bar "
-          f"{ENGINE_BAR} + {ENGINE_BAR}|bvh|, under {ENGINE_BAD_PIXELS})")
-    check(bad.item() < ENGINE_BAD_PIXELS, f"bench via K1 vs via K4: "
-          f"bad-pixel share {bad.item()}")
+    check_against_k4("bench via K1", scene, cfg, img)
 
     time_frames("bench", frame_args(scene, cfg, device), 5, card)
     return counts["cluster_hit"]
+
+
+def check_against_k4(name, scene, cfg, img) -> None:
+    """img, rendered with cfg, against the same-seed frame through the BVH
+    walk (K4, the f32 product) at the reference's engine bar: a pixel is
+    bad where a channel differs by more than ENGINE_BAR + ENGINE_BAR * |K4|,
+    and fewer than ENGINE_BAD_PIXELS of the pixels are bad."""
+    reset_launches()
+    bvh = pt.render(scene, cfg.replace(backend="jnp"))
+    torch.cuda.synchronize()
+    counts = launches()
+    check_only(f"{name}: the frame via K4", counts, "bvh_hit")
+    diff = (img - bvh).abs()
+    bad = (diff > ENGINE_BAR + ENGINE_BAR * bvh.abs()).any(-1).float() \
+        .mean().item()
+    print(f"[main] render({name}) vs via K4 ({cfg.width}x{cfg.height}, "
+          f"{counts['bvh_hit']} K4 launches): max abs diff "
+          f"{diff.max().item():.3g}, bad-pixel share {bad:.6f} (bar "
+          f"{ENGINE_BAR} + {ENGINE_BAR}|K4|, under {ENGINE_BAD_PIXELS})")
+    check(bad < ENGINE_BAD_PIXELS, f"{name} vs via K4: bad-pixel share "
+          f"{bad}")
 
 
 def time_frames(name, args, n_frames, card, kernel=None) -> None:
@@ -981,9 +1061,12 @@ def config5_host_scene(cfg):
     t1 = time.perf_counter()
     scene = with_bvh(scene)
     t2 = time.perf_counter()
-    print(f"[main] big_mesh: {scene.geometry.tri_v0.shape[0]} triangles, "
-          f"{scene.geometry.bvh_lo.shape[0]} BVH nodes; host build s: "
-          f"big_mesh {t1 - t0:.2f}, native BVH {t2 - t1:.2f}")
+    g = scene.geometry
+    print(f"[main] big_mesh: {g.tri_v0.shape[0]} triangles, "
+          f"{g.bvh_lo.shape[0]} BVH nodes, {g.bvh_pairs.shape[0]} pair "
+          f"entries, depth {int(g.bvh_pairs[0, 7].view(torch.int32))}; host "
+          f"build s: big_mesh {t1 - t0:.2f}, native BVH and its tables "
+          f"{t2 - t1:.2f}")
     return scene
 
 
@@ -1040,6 +1123,7 @@ def phase_config5(scene, device, card: str) -> int:
     print(f"[main] render(config5) {cfg.width}x{cfg.height} depth "
           f"{cfg.max_depth}: mean {mean:.6f}, launches {counts}, "
           f"{seconds:.3f} s (first frame)")
+    check_against_k4("config5 via the grid", scene, cfg, img)
 
     args = frame_args(scene, cfg, device)
     for i, (n_rays, first, info) in enumerate(grid_stats_frame(args)):
@@ -1088,6 +1172,7 @@ def phase_stream(scene, device, card: str) -> int:
           f"{small.height} depth "
           f"{small.max_depth}: mean {mean:.6f}, launches {counts}, "
           f"{seconds:.3f} s")
+    check_against_k4("config5 via the stream", scene, small, img)
     if 4.0 * seconds > STREAM_FRAME_LIMIT_S:
         print(f"[main] config5 stream frame stays at {small.width}x"
               f"{small.height}: {cfg.width}x{cfg.height} would take about "
@@ -1484,7 +1569,7 @@ def main() -> int:
         k2_launches = phase_config5(scene, device, card)
         c5_k4 = c5.replace(backend="jnp")
         phase_bvh_vs_plain("config5", scene, c5_k4, BVH_CHECK_PIXELS_C5,
-                           device, k4)
+                           device, k4, depth=2)
         time_frames("config5 backend=jnp", frame_args(scene, c5_k4, device),
                     3, card, "bvh_hit")
         del scene

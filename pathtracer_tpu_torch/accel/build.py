@@ -104,8 +104,9 @@ def with_bvh(scene: Scene, max_leaf: int = 4, engine: str = "auto") -> Scene:
     native above). Unlike the reference, "auto" never falls back to numpy
     when the native library cannot be built: it raises, since the fallback
     gives another triangle order. Light triangle indices are remapped
-    through the permutation, and the BVH is also packed for the CUDA walk
-    (ops/traverse_bvh.py:pack_tables).
+    through the permutation, and the BVH is also packed for the walks of
+    ops/traverse_bvh.py (pack_tables: skip-link nodes, child pairs and
+    triangles).
     """
     if engine not in ("auto", "numpy", "native"):
         raise ValueError(f"unknown BVH engine {engine!r}")
@@ -125,8 +126,8 @@ def with_bvh(scene: Scene, max_leaf: int = 4, engine: str = "auto") -> Scene:
     inv = np.empty_like(perm)
     inv[perm] = np.arange(len(perm), dtype=np.int32)
     v0, e1, e2 = v0[perm], e1[perm], e2[perm]
-    nodes, tris = pack_tables(bvh.lo, bvh.hi, bvh.first, bvh.count, bvh.skip,
-                              v0, e1, e2)
+    nodes, pairs, tris = pack_tables(bvh.lo, bvh.hi, bvh.first, bvh.count,
+                                     bvh.skip, v0, e1, e2)
     g2 = g.replace(
         tri_v0=v0,
         tri_e1=e1,
@@ -140,6 +141,7 @@ def with_bvh(scene: Scene, max_leaf: int = 4, engine: str = "auto") -> Scene:
         bvh_skip=bvh.skip,
         bvh_nodes=nodes,
         bvh_tris=tris,
+        bvh_pairs=pairs,
     )
     tri_idx = inv[scene.lights.tri_idx.cpu().numpy()].astype(np.int32)
     return scene.replace(geometry=g2,

@@ -30,63 +30,80 @@ from ..ops.intersect_cluster import _safe_inverse
 CHUNK = 8192
 
 
+def slab(lo, hi, o, inv_d):
+    """(tnear, tfar) of each ray's slab test against its box (lo, hi)."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    return (torch.minimum(t0, t1).max(dim=1).values,
+            torch.maximum(t0, t1).min(dim=1).values)
+
+
+def box_hit(tnear, tfar, t_best):
+    """The slab test, culled against the current best hit."""
+    return (tfar >= torch.clamp(tnear, min=C.T_MIN)) & (tnear < t_best)
+
+
+def mt_test(v0, e1, e2, idx, o, d):
+    """(t, ok): Möller–Trumbore of each ray against triangle idx, every
+    product and sum rounded on its own in the kernels' order."""
+    o0, o1, o2 = o.unbind(1)
+    d0, d1, d2 = d.unbind(1)
+    v0x, v0y, v0z = v0[idx].unbind(1)
+    e1x, e1y, e1z = e1[idx].unbind(1)
+    e2x, e2y, e2z = e2[idx].unbind(1)
+    pv0 = d1 * e2z - d2 * e2y  # pvec = d x e2
+    pv1 = d2 * e2x - d0 * e2z
+    pv2 = d0 * e2y - d1 * e2x
+    det = e1x * pv0 + e1y * pv1 + e1z * pv2
+    big = det.abs() > C.DET_EPS
+    inv = torch.where(big, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+    tv0 = o0 - v0x
+    tv1 = o1 - v0y
+    tv2 = o2 - v0z
+    uu = (tv0 * pv0 + tv1 * pv1 + tv2 * pv2) * inv
+    qv0 = tv1 * e1z - tv2 * e1y  # qvec = tvec x e1
+    qv1 = tv2 * e1x - tv0 * e1z
+    qv2 = tv0 * e1y - tv1 * e1x
+    vv = (d0 * qv0 + d1 * qv1 + d2 * qv2) * inv
+    t = (e2x * qv0 + e2y * qv1 + e2z * qv2) * inv
+    ok = (big & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (t > C.T_MIN) & (t < C.T_FAR))
+    return t, ok
+
+
 def _walk_chunk(lo, hi, first, count, skip, v0, e1, e2, o, d, max_leaf):
     n_nodes = lo.shape[0]
     last_tri = v0.shape[0] - 1
     R = o.shape[0]
     dev = o.device
     inv_d = _safe_inverse(d)
-    o0, o1, o2 = o.unbind(1)
-    d0, d1, d2 = d.unbind(1)
     cursor = torch.zeros((R,), dtype=torch.int64, device=dev)
     t_best = torch.full((R,), C.T_FAR, dtype=torch.float32, device=dev)
     best = torch.full((R,), -1, dtype=torch.int64, device=dev)
     visits = torch.zeros((R,), dtype=torch.int32, device=dev)
+    tests = torch.zeros((R,), dtype=torch.int32, device=dev)
     while True:
         active = cursor < n_nodes
         if not bool(active.any()):
             break
         c = torch.clamp(cursor, max=n_nodes - 1)  # finished lanes
-        t0 = (lo[c] - o) * inv_d
-        t1 = (hi[c] - o) * inv_d
-        tnear = torch.minimum(t0, t1).max(dim=1).values
-        tfar = torch.maximum(t0, t1).min(dim=1).values
-        # Slab test, culled against the current best hit.
-        hit_box = active & (tfar >= torch.clamp(tnear, min=C.T_MIN)) \
-            & (tnear < t_best)
+        hit_box = active & box_hit(*slab(lo[c], hi[c], o, inv_d), t_best)
         cnt = count[c]
         is_leaf = cnt > 0
         first_c = first[c].to(torch.int64)
         for k in range(max_leaf):
             idx = torch.clamp(first_c + k, max=last_tri)
             valid = hit_box & is_leaf & (k < cnt)
-            v0x, v0y, v0z = v0[idx].unbind(1)
-            e1x, e1y, e1z = e1[idx].unbind(1)
-            e2x, e2y, e2z = e2[idx].unbind(1)
-            pv0 = d1 * e2z - d2 * e2y  # pvec = d x e2
-            pv1 = d2 * e2x - d0 * e2z
-            pv2 = d0 * e2y - d1 * e2x
-            det = e1x * pv0 + e1y * pv1 + e1z * pv2
-            big = det.abs() > C.DET_EPS
-            inv = torch.where(big, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
-            tv0 = o0 - v0x
-            tv1 = o1 - v0y
-            tv2 = o2 - v0z
-            uu = (tv0 * pv0 + tv1 * pv1 + tv2 * pv2) * inv
-            qv0 = tv1 * e1z - tv2 * e1y  # qvec = tvec x e1
-            qv1 = tv2 * e1x - tv0 * e1z
-            qv2 = tv0 * e1y - tv1 * e1x
-            vv = (d0 * qv0 + d1 * qv1 + d2 * qv2) * inv
-            t = (e2x * qv0 + e2y * qv1 + e2z * qv2) * inv
-            ok = (valid & big & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                  & (t > C.T_MIN) & (t < C.T_FAR))
-            better = ok & (t < t_best)  # strict: ties keep the earlier hit
+            t, ok = mt_test(v0, e1, e2, idx, o, d)
+            tests += valid.to(torch.int32)
+            # Strict: ties keep the earlier hit.
+            better = valid & ok & (t < t_best)
             t_best = torch.where(better, t, t_best)
             best = torch.where(better, idx, best)
         nxt = torch.where(hit_box & ~is_leaf, c + 1, skip[c].to(torch.int64))
         cursor = torch.where(active, nxt, cursor)
         visits += active.to(torch.int32)
-    return t_best, best.to(torch.int32), visits
+    return t_best, best.to(torch.int32), visits, tests
 
 
 def walk(lo, hi, first, count, skip, v0, e1, e2, o, d, max_leaf: int = 4,
@@ -103,6 +120,7 @@ def walk(lo, hi, first, count, skip, v0, e1, e2, o, d, max_leaf: int = 4,
         return (torch.full((R,), C.T_FAR, dtype=torch.float32,
                            device=o.device),
                 torch.full((R,), -1, dtype=torch.int32, device=o.device),
+                torch.zeros((R,), dtype=torch.int32, device=o.device),
                 torch.zeros((R,), dtype=torch.int32, device=o.device))
     parts = [_walk_chunk(lo, hi, first, count, skip, v0, e1, e2,
                          o[s:s + chunk], d[s:s + chunk], max_leaf)
@@ -124,7 +142,7 @@ def hit_from_index(geom, o, d, t_best, tri):
 def closest_hit(geom, o, d, max_leaf: int = 4, chunk: int = CHUNK):
     """Closest hit via the BVH walk (triangles) + brute spheres; the
     engine/intersect.py:brute contract."""
-    t_best, tri, _ = walk(geom.bvh_lo, geom.bvh_hi, geom.bvh_first,
+    t_best, tri, _, _ = walk(geom.bvh_lo, geom.bvh_hi, geom.bvh_first,
                           geom.bvh_count, geom.bvh_skip, geom.tri_v0,
                           geom.tri_e1, geom.tri_e2, o, d, max_leaf, chunk)
     return hit_from_index(geom, o, d, t_best, tri)

@@ -14,7 +14,8 @@ product of a cluster visit (ops/csrc/visit.cuh) without its hit predicate:
   probe_split_pre  the same from operands split beforehand (split_bf16).
 
 On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/visit_probe.cu``, built at first use) and counts the launch in its
+(``csrc/visit_probe.cu``, built at first use; K5 on the CUDA cores, K6 on
+``mma.sync``, K7 on ``wgmma`` fed by TMA) and counts the launch in its
 own counter (``F32_LAUNCHES``, ``SPLIT_IN_LAUNCHES`` or
 ``SPLIT_PRE_LAUNCHES``); on a CPU tensor it runs its plain version
 (``*_plain``).
@@ -192,6 +193,9 @@ def probe_split_pre(mask, rayf_hi, rayf_lo, feat_hi, feat_lo) -> torch.Tensor:
     C, R = _check(mask, args[1:3], args[3:5], torch.bfloat16)
     if mask.device.type == "cpu":
         return probe_split_pre_plain(*args)
+    if feat_hi.data_ptr() % 16 or feat_lo.data_ptr() % 16:
+        raise ValueError("the split tables must be 16-byte aligned (the "
+                         "kernel's TMA copies read them)")
     out = _launch("probe_split_pre", args, C, R)
     SPLIT_PRE_LAUNCHES += 1
     return out

@@ -10,9 +10,9 @@ The reference stores its cluster feature table as a bf16 ``[hi; hi; lo]``
 stack (48 rows). The port keeps the float32 table it was rounded from: it
 is rebuilt here from the carried triangles and ``cl_map``, and its bf16
 stack must equal the carried table bit for bit, or the conversion raises.
-The port's own packed tables are derived: ``bvh_nodes`` and ``bvh_tris``
-from the carried BVH and triangle arrays, ``cl_feat_split`` from the
-rebuilt feature table.
+The port's own packed tables are derived: ``bvh_nodes``, ``bvh_pairs``
+and ``bvh_tris`` from the carried BVH and triangle arrays,
+``cl_feat_split`` from the rebuilt feature table.
 """
 
 from __future__ import annotations
@@ -71,7 +71,8 @@ def scene_from_arrays(geometry: dict, materials: dict, camera: dict,
     geometry = dict(geometry)
     geometry["cl_feat"] = _feat_from_carried(geometry)
     geometry["cl_feat_split"] = split_table(geometry["cl_feat"])
-    geometry["bvh_nodes"], geometry["bvh_tris"] = pack_tables(
+    (geometry["bvh_nodes"], geometry["bvh_pairs"],
+     geometry["bvh_tris"]) = pack_tables(
         *(geometry[k] for k in ("bvh_lo", "bvh_hi", "bvh_first", "bvh_count",
                                 "bvh_skip", "tri_v0", "tri_e1", "tri_e2")))
     scene = Scene(

@@ -5,11 +5,12 @@ order), with two differences: ``Geometry.cl_feat`` is the float32
 ``(16, C*512)`` feature table, not the reference's bf16 ``[hi; hi; lo]``
 stack, which existed only to fit the TPU's matrix unit
 (accel/clusters.py:stack_feat_bf16 rebuilds it for comparisons); and
-``Geometry`` ends with three fields of its own, all derived from the
-carried arrays and packed once per scene for a kernel: ``bvh_nodes`` and
-``bvh_tris``, the BVH packed for the CUDA walk (ops/traverse_bvh.py), and
-``cl_feat_split``, the feature table as bf16 hi/lo split columns for the
-stream and pair kernels (accel/clusters.py:split_table).
+``Geometry`` ends with four fields of its own, all derived from the
+carried arrays and packed once per scene for a kernel: ``bvh_nodes``,
+``bvh_tris`` and ``bvh_pairs``, the BVH packed for its walks
+(ops/traverse_bvh.py), and ``cl_feat_split``, the feature table as bf16
+hi/lo split columns for the stream and pair kernels
+(accel/clusters.py:split_table).
 
 Builders work in numpy and wrap the result once with :func:`_tensors`; every
 dataclass has a ``.to(device)`` that moves all of its tensors.
@@ -59,8 +60,9 @@ class Geometry(_TensorFields):
     decode. The grid tables (accel/grid.py) map each morton cell of a
     uniform grid to a contiguous cluster range; the super-cluster tables
     (accel/clusters.py:build_supers) group clusters for the stream route's
-    per-ray cull. `bvh_nodes`/`bvh_tris` hold the BVH and its triangles as
-    ops/traverse_bvh.py:pack_tables lays them out (empty without a BVH).
+    per-ray cull. `bvh_nodes`/`bvh_tris`/`bvh_pairs` hold the BVH, its
+    triangles and its child pairs as ops/traverse_bvh.py:pack_tables lays
+    them out (empty without a BVH).
     `cl_feat_split` holds `cl_feat`'s used rows as accel/clusters.py:
     split_table packs them, one 32 KB block per cluster.
     """
@@ -93,6 +95,7 @@ class Geometry(_TensorFields):
     cl_slot_nm: torch.Tensor  # (C*128, 8) f32
     bvh_nodes: torch.Tensor  # (N, 8) f32 packed nodes
     bvh_tris: torch.Tensor  # (T, 12) f32 packed triangles (0 rows: no BVH)
+    bvh_pairs: torch.Tensor  # (E, 16) f32 child-pair entries
     cl_feat_split: torch.Tensor  # (C, 512, 32) bf16 split feature columns
 
 
@@ -199,6 +202,7 @@ def make_geometry(
         cl_slot_nm=np.zeros((0, 8), np.float32),
         bvh_nodes=np.zeros((0, 8), np.float32),
         bvh_tris=np.zeros((0, 12), np.float32),
+        bvh_pairs=np.zeros((0, 16), np.float32),
         cl_feat_split=torch.zeros((0, 512, 32), dtype=torch.bfloat16),
     )))
 

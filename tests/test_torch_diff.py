@@ -38,7 +38,7 @@ torch.set_num_threads(2)
 PARTS = ("geometry", "materials", "camera", "lights")
 GEOMETRY_FLOATS = ("tri_v0", "tri_e1", "tri_e2", "tri_n", "sph_c", "sph_r",
                    "bvh_lo", "bvh_hi", "cl_lo", "cl_hi", "cl_feat",
-                   "cl_slot_nm", "bvh_nodes", "bvh_tris")
+                   "cl_slot_nm", "bvh_nodes", "bvh_tris", "bvh_pairs")
 
 
 def _carry(ref_scene):

@@ -1,6 +1,8 @@
-"""The port's BVH walk (accel/traverse.py, and ops/traverse_bvh.py, whose
-plain version CPU tensors run) against the reference's walks and brute
-force, and the "jnp"/"pallas" engine routes against the reference's engine.
+"""The port's BVH walks against the reference's walks and brute force, and
+the "jnp"/"pallas" engine routes against the reference's engine: the
+skip-link walk (accel/traverse.py, the plain version that CPU tensors run
+through ops/traverse_bvh.py), and the near-first pair walk of the CUDA
+kernel in plain PyTorch (bvh_hit_ordered_plain) with its child-pair table.
 
 Bars are the reference's own: walk vs walk and vs brute t and normals at
 atol 1e-5 with materials equal (tests/unit/test_pallas.py); engine renders
@@ -27,12 +29,14 @@ from pathtracer_tpu.ops.traverse_pallas import closest_hit_pallas
 from pathtracer_tpu.scene import builder as ref_builder
 from pathtracer_tpu_torch import render
 from pathtracer_tpu_torch.accel import traverse
-from pathtracer_tpu_torch.accel.build import with_bvh
+from pathtracer_tpu_torch.accel.build import build_bvh, with_bvh
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.engine import intersect as isect
+from pathtracer_tpu_torch.engine.camera import camera_rays
 from pathtracer_tpu_torch.ops import traverse_bvh as tb
 from pathtracer_tpu_torch.scene import builder
 from pathtracer_tpu_torch.scene.convert import scene_from_arrays
+from pathtracer_tpu_torch.scene.model import make_geometry
 
 torch.set_num_threads(2)
 
@@ -114,8 +118,8 @@ def test_chunked_equals_unchunked(mesh_pair):
     chunked = traverse.walk(*args, chunk=64)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
-    t, tri, visits = whole
-    assert (visits > 0).all()
+    t, tri, visits, tests = whole
+    assert (visits > 0).all() and (tests >= 0).all()
     assert torch.equal(tri < 0, t >= C.T_FAR)
 
 
@@ -156,6 +160,7 @@ def test_packed_tables_equal_direct_gather(mesh_pair):
     for g in (carried.geometry, built):
         nodes, tris = g.bvh_nodes, g.bvh_tris
         assert nodes.shape == (g.bvh_lo.shape[0], 8)
+        assert g.bvh_pairs.shape == (int((g.bvh_count == 0).sum()) + 1, 16)
         assert tris.shape == (g.tri_v0.shape[0], 12)
         assert torch.equal(nodes[:, 0:3], g.bvh_lo)
         assert torch.equal(nodes[:, 4:7], g.bvh_hi)
@@ -172,8 +177,10 @@ def test_packed_tables_equal_direct_gather(mesh_pair):
         assert torch.equal(count, g.bvh_count)
         assert torch.equal(first[leaf], g.bvh_first[leaf])
     assert torch.equal(carried.geometry.bvh_nodes, built.bvh_nodes)
+    assert torch.equal(carried.geometry.bvh_pairs, built.bvh_pairs)
     no_bvh = builder.cornell_spheres().geometry
     assert no_bvh.bvh_nodes.shape == (0, 8) and no_bvh.bvh_tris.shape == (0, 12)
+    assert no_bvh.bvh_pairs.shape == (0, 16)
 
 
 def test_pack_rejects_unwalkable_links(mesh_pair):
@@ -192,28 +199,36 @@ def test_pack_rejects_unwalkable_links(mesh_pair):
 
 
 def test_bvh_hit_contract(mesh_pair):
-    """Visits are summed per 256-ray block; misses report -1 and T_FAR;
-    CPU tensors never launch the kernel; malformed inputs raise."""
+    """Visits and triangle tests are summed per 256-ray block; misses
+    report -1 and T_FAR; CPU tensors never launch the kernel; malformed
+    inputs raise."""
     _, scene = mesh_pair
     g = scene.geometry
     o, d = _random_rays(300, seed=8)
     launches = tb.LAUNCHES
-    t, tri, visits = tb.bvh_hit(g.bvh_nodes, g.bvh_tris, _t(o), _t(d))
+    t, tri, visits, tests = tb.bvh_hit(g.bvh_nodes, g.bvh_pairs, g.bvh_tris,
+                                       _t(o), _t(d))
     assert tb.LAUNCHES == launches, "CPU tensors never launch the kernel"
     assert visits.shape == (2,) and visits.dtype == torch.int32
-    _, _, per_ray = traverse.walk(
+    assert tests.shape == (2,) and tests.dtype == torch.int32
+    _, _, per_ray, tests_per_ray = traverse.walk(
         g.bvh_lo, g.bvh_hi, g.bvh_first, g.bvh_count, g.bvh_skip, g.tri_v0,
         g.tri_e1, g.tri_e2, _t(o), _t(d))
     assert visits.tolist() == [int(per_ray[:256].sum()),
                                int(per_ray[256:].sum())]
+    assert tests.tolist() == [int(tests_per_ray[:256].sum()),
+                              int(tests_per_ray[256:].sum())]
     assert torch.equal(tri < 0, t >= C.T_FAR)
+    n, p, tr = g.bvh_nodes, g.bvh_pairs, g.bvh_tris
     bad = [
-        (g.bvh_nodes[:, :7].contiguous(), g.bvh_tris, _t(o), _t(d)),
-        (g.bvh_nodes, g.bvh_tris.double(), _t(o), _t(d)),
-        (g.bvh_nodes, g.bvh_tris, _t(o)[:-1], _t(d)),
-        (g.bvh_nodes, g.bvh_tris, _t(o).T.contiguous().T, _t(d)),
-        (g.bvh_nodes[:0], g.bvh_tris, _t(o), _t(d)),
-        (g.bvh_nodes, g.bvh_tris.to("meta"), _t(o), _t(d)),
+        (n[:, :7].contiguous(), p, tr, _t(o), _t(d)),
+        (n, p[:, :15].contiguous(), tr, _t(o), _t(d)),
+        (n, p, tr.double(), _t(o), _t(d)),
+        (n, p, tr, _t(o)[:-1], _t(d)),
+        (n, p, tr, _t(o).T.contiguous().T, _t(d)),
+        (n[:0], p, tr, _t(o), _t(d)),
+        (n, p[:0], tr, _t(o), _t(d)),
+        (n, p, tr.to("meta"), _t(o), _t(d)),
     ]
     for args in bad:
         with pytest.raises(ValueError):
@@ -250,3 +265,200 @@ def test_goldens_through_bvh_route(name, cfg):
     img = render(scene, cfg, device="cpu").numpy()
     golden = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npy"))
     np.testing.assert_allclose(img, golden, atol=1e-5, rtol=1e-5)
+
+
+# ---- the near-first pair walk (the CUDA kernel's, in plain PyTorch) ------
+
+@pytest.fixture(scope="module")
+def big_native():
+    """big_mesh at ~20k triangles with the native SAH builder."""
+    return with_bvh(builder.big_mesh(n_target=20_000), engine="native")
+
+
+def _tables(g):
+    return tuple(x.numpy() for x in (g.bvh_lo, g.bvh_hi, g.bvh_first,
+                                     g.bvh_count, g.bvh_skip))
+
+
+@pytest.mark.parametrize("which", ["bunny", "big_mesh_native"])
+def test_pair_table_round_trips(mesh_pair, big_native, which):
+    """Entry e of interior node i holds its children i + 1 and skip[i + 1]:
+    their boxes, and each child's leaf word or entry * 8; entry 0 holds the
+    root and a box no ray hits, with the tree's depth."""
+    g = mesh_pair[1].geometry if which == "bunny" else big_native.geometry
+    lo, hi, first, count, skip = _tables(g)
+    pairs = g.bvh_pairs.numpy()
+    words = pairs.view(np.int32)
+    inner = np.nonzero(count == 0)[0]
+    entry = np.zeros(len(lo), np.int64)
+    entry[inner] = np.arange(1, len(inner) + 1)
+
+    def word(c):
+        return np.where(count[c] > 0, first[c] * 8 + count[c], entry[c] * 8)
+
+    for half, child in ((0, inner + 1), (8, skip[inner + 1])):
+        np.testing.assert_array_equal(pairs[1:, half:half + 3], lo[child])
+        np.testing.assert_array_equal(pairs[1:, half + 4:half + 7],
+                                      hi[child])
+        np.testing.assert_array_equal(words[1:, half + 3], word(child))
+    assert not words[1:, [7, 15]].any()
+    np.testing.assert_array_equal(pairs[0, 0:3], lo[0])
+    np.testing.assert_array_equal(pairs[0, 4:7], hi[0])
+    assert words[0, 3] == word(np.array([0]))[0] == 8
+    assert np.isposinf(pairs[0, [8, 9, 10, 12, 13, 14]]).all()
+    assert words[0, 11] == 0
+    # The depth: the most interior ancestors of any node.
+    depth = np.zeros(len(lo), np.int64)
+    for i in inner:
+        depth[i + 1] = depth[skip[i + 1]] = depth[i] + 1
+    assert words[0, 7] == depth.max() <= tb.STACK_DEPTH
+    # The children's subtrees tile the parent's.
+    assert (skip[skip[inner + 1]] == skip[inner]).all()
+
+
+def _chain(levels):
+    """Skip-link arrays of a tree `levels` interior nodes deep: each
+    interior node has a one-triangle leaf on the left and the rest of the
+    chain on the right; the last interior node has two leaves."""
+    lo, hi, first, count, skip = [], [], [], [], []
+
+    def node(n_tri, d):
+        i = len(lo)
+        lo.append([0.0, 0.0, 0.0])
+        hi.append([1.0, 1.0, 1.0])
+        first.append(0)
+        count.append(n_tri)
+        skip.append(-1)
+        if n_tri == 0:
+            node(1, 0)
+            node(1, 0) if d == 1 else node(0, d - 1)
+        skip[i] = len(lo)
+
+    node(0, levels)
+    v = np.zeros((1, 3), np.float32)
+    return (np.array(lo, np.float32), np.array(hi, np.float32),
+            np.array(first), np.array(count), np.array(skip), v, v, v)
+
+
+def test_pack_rejects_a_tree_deeper_than_the_stack():
+    nodes, pairs, _ = tb.pack_tables(*_chain(tb.STACK_DEPTH))
+    assert int(pairs[0].view(np.int32)[7]) == tb.STACK_DEPTH
+    with pytest.raises(ValueError, match="deep"):
+        tb.pack_tables(*_chain(tb.STACK_DEPTH + 1))
+    # A skip-link walk that is not a binary tree in preorder.
+    lo, hi, first, count, skip, v0, e1, e2 = _chain(3)
+    skip[1] = 3  # the first leaf swallows its sibling
+    with pytest.raises(ValueError):
+        tb.pack_tables(lo, hi, first, count, skip, v0, e1, e2)
+
+
+def test_root_leaf():
+    """A BVH that is one leaf (four triangles): the pair table is entry 0
+    alone, and the ordered walk equals the skip-link walk and brute force."""
+    tris = np.array([[[0.2, 0.2, 0.5], [0.8, 0.2, 0.5], [0.2, 0.8, 0.5]],
+                     [[0.8, 0.8, 0.5], [0.2, 0.8, 0.5], [0.8, 0.2, 0.5]],
+                     [[0.1, 0.1, 0.9], [0.9, 0.1, 0.9], [0.1, 0.9, 0.9]],
+                     [[0.3, 0.3, 0.2], [0.4, 0.3, 0.2], [0.3, 0.4, 0.2]]],
+                    np.float32)
+    v0, e1, e2 = tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
+    bvh = build_bvh(v0, e1, e2)
+    assert len(bvh.lo) == 1
+    perm = bvh.order
+    nodes, pairs, packed = (torch.from_numpy(x) for x in tb.pack_tables(
+        bvh.lo, bvh.hi, bvh.first, bvh.count, bvh.skip, v0[perm], e1[perm],
+        e2[perm]))
+    assert pairs.shape == (1, 16)
+    o, d = _random_rays(200, seed=11)
+    o[:100] = [0.5, 0.5, 0.0]  # these hit the quad at z = 0.5
+    d[:100] = np.clip(d[:100], -0.3, 0.3)
+    d[:100, 2] = 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    skip = tb.bvh_hit_plain(nodes, packed, _t(o), _t(d))
+    ordered = tb.bvh_hit_ordered_plain(pairs, packed, _t(o), _t(d))
+    for a, b in zip(skip[:2], ordered[:2]):
+        assert torch.equal(a, b)
+    assert int(ordered[2].sum()) == 200  # entry 0 only
+    assert (skip[1][:100] >= 0).all()
+    g = make_geometry(tris[perm], np.zeros(4, np.int32))
+    t_b, _, _ = isect.brute(g, _t(o), _t(d))
+    np.testing.assert_allclose(skip[0].numpy(), t_b.numpy(), atol=1e-5)
+
+
+def _camera_rays(scene, side, seed):
+    ids = torch.arange(side * side, dtype=torch.int64)
+    jitter = torch.from_numpy(np.random.default_rng(seed).random(
+        (side * side, 2), np.float32))
+    o, d = camera_rays(scene.camera, side, side, jitter, ids)
+    return o.numpy(), d.numpy()
+
+
+def _bounce_like_rays(n, seed):
+    """Random origins and directions in the box, then axis-aligned rays and
+    rays grazing the Cornell walls (origins on x = 0, y = 0, x = 1, y = 1,
+    z = 1, directions in or barely off the wall's plane): rays that lie on
+    box faces."""
+    o, d = _random_rays(n, seed)
+    rng = np.random.default_rng(seed + 100)
+    m = n // 4
+    axes = np.eye(3, dtype=np.float32)[rng.integers(0, 3, m)]
+    d[:m] = axes * rng.choice([-1.0, 1.0], (m, 1)).astype(np.float32)
+    wall = rng.integers(0, 5, m)
+    axis = np.array([0, 1, 0, 1, 2])[wall]
+    side = np.array([0.0, 0.0, 1.0, 1.0, 1.0], np.float32)[wall]
+    rows = np.arange(m, 2 * m)
+    o[rows, axis] = side
+    d[rows, axis] = rng.choice([0.0, 1e-7, -1e-7, 1e-3], m)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d
+
+
+@pytest.mark.parametrize("rays", ["camera", "bounce"])
+@pytest.mark.parametrize("against", ["jnp", "pallas"])
+def test_ordered_walk_matches_reference(mesh_pair, rays, against):
+    """The kernel's walk (bvh_hit_ordered_plain) against the reference's
+    skip-link walks at the reference's bar: t and normals at atol 1e-5,
+    materials equal."""
+    ref, scene = mesh_pair
+    g = scene.geometry
+    if rays == "camera":
+        o, d = _camera_rays(scene, 24, seed=3)
+    else:
+        o, d = _bounce_like_rays(800, seed=9)
+    t, tri, _, _ = tb.bvh_hit_ordered_plain(g.bvh_pairs, g.bvh_tris, _t(o),
+                                            _t(d))
+    got = traverse.hit_from_index(g, _t(o), _t(d), t, tri)
+    if against == "jnp":
+        want = ref_closest_hit(ref.geometry, o, d)
+    else:
+        want = closest_hit_pallas(ref.geometry, o, d, interpret=True)
+    _assert_walk_bar(want, got)
+    assert (t < C.T_FAR).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("which", ["bunny", "big_mesh_native"])
+def test_ordered_walk_against_skip_links(mesh_pair, big_native, which):
+    """On bounce-like rays: the same hit masks, t bit-equal wherever the
+    same triangle wins, and no more triangle tests, box tests (one per
+    child of each entry, and the root's) or visits in total than the
+    skip-link walk; the footprint covers every triangle tested."""
+    scene = mesh_pair[1] if which == "bunny" else big_native
+    g = scene.geometry
+    o, d = _bounce_like_rays(1000, seed=12)
+    if which == "big_mesh_native":
+        lo, hi = g.bvh_lo[0].numpy(), g.bvh_hi[0].numpy()
+        o = (lo + (hi - lo) * (o - 0.05) / 0.9).astype(np.float32)
+    skip = tb.bvh_hit_plain(g.bvh_nodes, g.bvh_tris, _t(o), _t(d))
+    seen = (torch.zeros(g.bvh_pairs.shape[0], dtype=torch.bool),
+            torch.zeros(g.bvh_tris.shape[0], dtype=torch.bool))
+    ordered = tb.bvh_hit_ordered_plain(g.bvh_pairs, g.bvh_tris, _t(o),
+                                       _t(d), chunk=256, seen=seen)
+    assert torch.equal(skip[1] >= 0, ordered[1] >= 0)
+    same = skip[1] == ordered[1]
+    assert torch.equal(skip[0][same], ordered[0][same])
+    assert same.float().mean() > 0.99
+    visits, tests = int(ordered[2].sum()), int(ordered[3].sum())
+    boxes = 2 * visits - len(o)  # entry 0 tests the root alone
+    assert int(skip[3].sum()) >= tests
+    assert int(skip[2].sum()) >= boxes >= visits
+    assert seen[0][0] and int(seen[0].sum()) <= visits
+    assert 0 < int(seen[1].sum()) <= tests
