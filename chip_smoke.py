@@ -23,7 +23,11 @@ the BVH walk (K4); ``config2`` and ``config3`` (the BVH walk, K4);
 through the BVH walk (K4) and through the stream route (K3), each rendered
 and timed, the grid's and the stream's frames also against the same-seed
 frame through K4; a value-and-grad step of the full bench frame through
-K1 and through K4; and material gradients against central differences. Every
+K1 and through K4; material gradients against central differences; and
+the front end in this process through ``cli.main``: config 3 with a
+checkpoint resumed (equal to ``pt.render``), the bench frame to a PNG (K1
+only), five fit steps on the bench frame (a falling loss), and three
+``bench_torch.py`` runs (forward, ``--grad``, ``--backend jnp``). Every
 phase either passes or raises; the last line of standard output is
 ``{"ok": true, "device": {...}}`` only when all passed. There is no CPU
 path: without a CUDA device the script fails at once.
@@ -34,8 +38,11 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import math
 import os
+import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 import pathtracer_tpu_torch as pt
+from pathtracer_tpu_torch import cli
 from pathtracer_tpu_torch import constants as C
 from pathtracer_tpu_torch.accel import native
 from pathtracer_tpu_torch.accel.auto import prepare_accel
@@ -139,6 +147,10 @@ PROBE_PAD_ROWS = vp.FEAT_ROWS  # bench rays: 11 feature rows padded to 16
 GRAD_STEPS = 3  # timed value-and-grad steps (median), after a warm-up
 FD_EPS = 2e-3  # tests/grad/test_grad.py's central-difference step
 FD_SIDE = 256  # the bench frame's side for the FD cases
+FRONT_DIR = os.path.join(ROOT, "build", "front_end")  # the CLI's files
+FRONT_BENCH_BUDGET = 10  # seconds of timed frames per bench_torch.py run
+FIT_STEPS = 5
+RESUME_ATOL = 1e-6  # resumed and pt.render images against the CLI's
 # The card's peak rates (NVIDIA's H100 SXM data sheet, dense): f32 on the
 # CUDA cores (an FMA counted as two), bf16 on the tensor cores, HBM.
 PEAK_F32 = 67e12
@@ -1516,6 +1528,185 @@ def phase_grad_fd(bench, device) -> None:
                   f"fd {label} {field}[{idx},{ch}]: {g} vs {fd}")
 
 
+def run_cli(argv) -> list:
+    """cli.main(argv) in this process, with standard output and error (a
+    forwarded bench_torch.py run's included) captured at the file
+    descriptors and echoed as [front] lines; fails on a non-zero exit.
+    Returns [stdout, stderr]."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    files = [open(os.path.join(FRONT_DIR, f"cli.{fd}.txt"), "w+")
+             for fd in (1, 2)]
+    saved = [os.dup(1), os.dup(2)]
+    rc, texts = None, []
+    try:
+        for fd, f in zip((1, 2), files):
+            os.dup2(f.fileno(), fd)
+        try:
+            rc = cli.main(argv)
+        except SystemExit as e:
+            rc = e.code
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        for fd, s in zip((1, 2), saved):
+            os.dup2(s, fd)
+            os.close(s)
+        for f in files:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        for name, text in zip(("out", "err"), texts):
+            for line in text.splitlines():
+                print(f"[front]   {name}: {line}")
+    check(rc == 0, f"cli {' '.join(argv)}: exit {rc}")
+    return texts
+
+
+def front_render_config3(device, card) -> None:
+    """config 3 as it stands through the CLI (chunks of 16, a checkpoint
+    every 16 spp, a preview every 32): only K4; a 32-spp checkpoint resumed
+    to 64 spp and pt.render of the preset both give its image."""
+    cfg = pt.PRESETS["config3"]
+
+    def path(name):
+        return os.path.join(FRONT_DIR, name)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out, _ = run_cli(["render", "--preset", "config3", "--checkpoint",
+                      path("ck.npz"), "--checkpoint-every", "16",
+                      "--preview-every", "32", "--out", path("a.npy")])
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    check_only("cli render config3", counts, "bvh_hit")
+    check(out.count("checkpointed ") == 4 and out.count("preview ") == 2,
+          "cli render config3: 4 checkpoints and 2 previews")
+    img = np.load(path("a.npy"))
+    check(img.shape == (cfg.height, cfg.width, 3)
+          and bool(np.isfinite(img).all()) and img.mean() > 0,
+          "cli render config3: a finite, non-black image")
+    check(np.array_equal(np.load(path("a.preview.npy")), img),
+          "cli render config3: the last preview is the image")
+    run_cli(["render", "--preset", "config3", "--spp", "32", "--checkpoint",
+             path("ck32.npz"), "--out", path("half.npy")])
+    out, _ = run_cli(["render", "--preset", "config3", "--resume",
+                      path("ck32.npz"), "--out", path("b.npy")])
+    check(f"resumed at 32/{cfg.spp} spp" in out, "cli render: resumed")
+    resumed = float(np.abs(np.load(path("b.npy")) - img).max())
+    direct = float(np.abs(
+        pt.render(bench_scene(cfg, device), cfg).cpu().numpy() - img).max())
+    print(f"[front] cli render --preset config3 {cfg.width}x{cfg.height} "
+          f"{cfg.spp} spp (chunks of {cfg.spp_chunk}) depth {cfg.max_depth}: "
+          f"{seconds:.3f} s (scene build included), launches {counts}; "
+          f"32-spp checkpoint resumed to {cfg.spp}: max abs diff "
+          f"{resumed:.3g}, pt.render: {direct:.3g} (atol {RESUME_ATOL}) on "
+          f"{card}")
+    check(resumed <= RESUME_ATOL, f"resumed config3 differs by {resumed}")
+    check(direct <= RESUME_ATOL, f"pt.render config3 differs by {direct}")
+
+
+def front_render_bench(card) -> None:
+    """The bench preset through the CLI into a PNG: only K1, 2 per bounce."""
+    cfg = pt.PRESETS["bench"]
+    png = os.path.join(FRONT_DIR, "bench.png")
+    reset_launches()
+    t0 = time.perf_counter()
+    run_cli(["render", "--preset", "bench", "--out", png])
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    check_only("cli render bench", counts, "cluster_hit")
+    check(counts["cluster_hit"] == 2 * cfg.max_depth,
+          f"cli render bench: {counts['cluster_hit']} K1 launches, "
+          f"expected {2 * cfg.max_depth}")
+    with open(png, "rb") as f:
+        head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n"
+          and struct.unpack(">II", head[16:24]) == (cfg.width, cfg.height),
+          "cli render bench: a PNG of the frame's size")
+    print(f"[front] cli render --preset bench -> PNG {cfg.width}x"
+          f"{cfg.height}: {seconds:.3f} s (scene build included), launches "
+          f"{counts} on {card}")
+
+
+def front_fit(card) -> None:
+    """FIT_STEPS fit steps on the full bench frame from the perturbed
+    albedo: finite losses, the last below the first; only K1. Each step's
+    loss_and_grad is timed between synchronisations."""
+    cfg = pt.PRESETS["bench"]
+    steps = []
+    loss_and_grad = dr.loss_and_grad
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loss_and_grad(*args, **kw)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        return out
+
+    reset_launches()
+    dr.loss_and_grad = timed
+    try:
+        out, _ = run_cli(["fit", "--preset", "bench", "--steps",
+                          str(FIT_STEPS), "--perturb"])
+    finally:
+        dr.loss_and_grad = loss_and_grad
+    counts = launches()
+    check_only("cli fit bench", counts, "cluster_hit")
+    # The target, every step's forward pass and the final image.
+    want = 2 * cfg.max_depth * (FIT_STEPS + 2)
+    check(counts["cluster_hit"] == want, f"cli fit bench: "
+          f"{counts['cluster_hit']} K1 launches, expected {want}")
+    losses = [float(x) for x in
+              re.findall(r"^step +\d+  loss (\S+)$", out, re.M)]
+    print(f"[front] cli fit --preset bench --steps {FIT_STEPS} --perturb "
+          f"({cfg.width}x{cfg.height}, depth {cfg.max_depth}): losses "
+          f"{losses}, step s {[round(s, 6) for s in steps]}, median "
+          f"{statistics.median(steps):.6f} s per step, launches {counts} on "
+          f"{card}")
+    check(len(losses) == FIT_STEPS and len(steps) == FIT_STEPS,
+          f"cli fit: {len(losses)} losses, {len(steps)} steps")
+    check(all(math.isfinite(x) for x in losses), "cli fit: finite losses")
+    check(losses[-1] < losses[0], f"cli fit: loss {losses[0]} -> "
+          f"{losses[-1]} did not fall")
+
+
+def front_bench(card) -> None:
+    """bench_torch.py through the CLI's forwarding: the bench frame
+    forward, as value-and-grad steps, and through K4."""
+    for extra in ([], ["--grad"], ["--backend", "jnp"]):
+        out, err = run_cli(["bench", "--budget", str(FRONT_BENCH_BUDGET),
+                            *extra])
+        row = json.loads(out.strip().splitlines()[-1])
+        check(set(row) == {"metric", "value", "unit", "vs_baseline"},
+              f"bench {extra}: the last line's keys {sorted(row)}")
+        check(row["value"] > 0, f"bench {extra}: value {row['value']}")
+        measured = [line for line in err.splitlines()
+                    if "bench measured" in line]
+        check(len(measured) == 1, f"bench {extra}: one measured line")
+        stats = dict(re.findall(r"(\w+)=(\S+)", measured[0]))
+        print(f"[front] bench {' '.join(extra) or '(forward)'}: "
+              f"{row['value']} {row['unit']} ({row['metric']}), "
+              f"{stats['frames']} frames in {stats['secs']} s, per-frame "
+              f"rays/s median {stats['frame_rays_per_s_median']} min "
+              f"{stats['frame_rays_per_s_min']} max "
+              f"{stats['frame_rays_per_s_max']} on {card}")
+
+
+def phase_front_end(device, card) -> None:
+    """The front end on the card, in this process through cli.main: config
+    3 with its checkpoint round trip, the bench frame to a PNG, a fit on
+    the bench frame, and three bench_torch.py runs."""
+    os.makedirs(FRONT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    front_render_config3(device, card)
+    front_render_bench(card)
+    front_fit(card)
+    front_bench(card)
+    print(f"[front] phase: {time.perf_counter() - t0:.1f} s")
+
+
 def kernel_entry(name, n_launches, k) -> dict:
     source, replaces, _, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -1586,6 +1777,9 @@ def main() -> int:
     bench = bench_scene(pt.PRESETS["bench"], device)
     phase_grad(bench, device, card)
     phase_grad_fd(bench, device)
+    del bench
+    torch.cuda.empty_cache()
+    phase_front_end(device, card)
     print(json.dumps({"kernels": [
         kernel_entry("cluster_hit", k1_launches, k1),
         kernel_entry("pair_hit", k2_launches, k2),

@@ -86,7 +86,7 @@ PRESETS: dict[str, RenderConfig] = {
         width=256, height=256, spp=64, max_depth=4, rr_start=2,
         scene="cornell_mesh", use_bvh=True, spp_chunk=16,
     ),
-    # 4. Differentiable pass (the gradient slice is not ported yet).
+    # 4. Differentiable pass: material gradients (diff/render.py).
     "config4": RenderConfig(
         width=128, height=128, spp=4, max_depth=2, scene="cornell_spheres",
         use_bvh=False,

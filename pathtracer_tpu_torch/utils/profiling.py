@@ -1,0 +1,63 @@
+"""Tracing and timing helpers (the reference's ``utils/profiling.py``).
+
+  * `trace(dir)` — context manager around `torch.profiler` (CPU and, where
+    there is a card, CUDA activity) that writes a Chrome trace into `dir`;
+  * `device_barrier(x)` — waits for the device that holds `x`, then
+    fetches one element to the host: PyTorch returns before the card has
+    finished, so timing code ends every timed region with it;
+  * `Timer` — wall-clock timer using the barrier.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import numpy as np
+import torch
+
+
+def device_barrier(x) -> float:
+    """Force completion of everything `x` depends on; returns one scalar."""
+    if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        return float(x.detach().reshape(-1)[0].item())
+    return float(np.asarray(x).reshape(-1)[0])
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the region; yields the profiler, writes
+    ``<host>_<pid>.<time>.pt.trace.json`` into log_dir at exit."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
+    ) as prof:
+        yield prof
+
+
+class Timer:
+    """with Timer() as t: ... t.barrier(result); print(t.seconds)"""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        self.seconds = None
+        return self
+
+    def barrier(self, x):
+        device_barrier(x)
+        self.seconds = time.perf_counter() - self.t0
+        return self.seconds
+
+    def __exit__(self, *exc):
+        if self.seconds is None:
+            self.seconds = time.perf_counter() - self.t0
+        return False
+
+
+def rays_per_second(n_rays: int, seconds: float) -> float:
+    return n_rays / max(seconds, 1e-12)
