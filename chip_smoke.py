@@ -23,7 +23,14 @@ the BVH walk (K4); ``config2`` and ``config3`` (the BVH walk, K4);
 through the BVH walk (K4) and through the stream route (K3), each rendered
 and timed, the grid's and the stream's frames also against the same-seed
 frame through K4; a value-and-grad step of the full bench frame through
-K1 and through K4; material gradients against central differences; and
+K1 and through K4; material gradients against central differences; the
+sharded path (``parallel/mesh.py``) in child processes: over two gloo
+ranks that share the card, the full bench frame (K1) and the full config-5
+frame (K2), each bit-equal to the single-process frame and timed beside
+it, the bench frame's sharded loss and grads against ``pt.grad_render``
+and two train steps with the materials bit-identical on both ranks; over
+one NCCL rank, the bench frame and a train step; and the scaling script
+through ``torchrun``, its rays/s printed beside ``bench_torch.py``'s; and
 the front end in this process through ``cli.main``: config 3 with a
 checkpoint resumed (equal to ``pt.render``), the bench frame to a PNG (K1
 only), five fit steps on the bench frame (a falling loss), and three
@@ -49,6 +56,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import pathtracer_tpu_torch as pt
 from pathtracer_tpu_torch import cli
@@ -66,6 +74,8 @@ from pathtracer_tpu_torch.ops import intersect_grid as ig
 from pathtracer_tpu_torch.ops import intersect_stream as st
 from pathtracer_tpu_torch.ops import traverse_bvh as tb
 from pathtracer_tpu_torch.ops import visit_probe as vp
+from pathtracer_tpu_torch.parallel import mesh as pmesh
+from pathtracer_tpu_torch.parallel.scaling import spawn_ranks
 from pathtracer_tpu_torch.sampling import rng as rng_mod
 from pathtracer_tpu_torch.scene import builder
 
@@ -151,6 +161,17 @@ FRONT_DIR = os.path.join(ROOT, "build", "front_end")  # the CLI's files
 FRONT_BENCH_BUDGET = 10  # seconds of timed frames per bench_torch.py run
 FIT_STEPS = 5
 RESUME_ATOL = 1e-6  # resumed and pt.render images against the CLI's
+DIST_TIMEOUT_S = 300.0  # each group of ranks in [dist]: start, builds, frames
+DIST_FRAMES = 3  # timed frames per path in [dist], after the checked one
+# [dist] (c): the scaling script through torchrun, one rank (NCCL).
+SCALING_CMD = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m",
+               "pathtracer_tpu_torch.parallel.scaling", "--scene",
+               "cornell_mesh", "--budget", "10"]
+SCALING_TIMEOUT_S = 240
+SHARING = "2 ranks share one card: overhead, not scaling"
+# The reference's sharded-vs-single bars (tests/dist/test_sharding.py).
+DIST_LOSS_RTOL, DIST_GRAD_RTOL, DIST_GRAD_ATOL = 1e-5, 1e-4, 1e-7
 # The card's peak rates (NVIDIA's H100 SXM data sheet, dense): f32 on the
 # CUDA cores (an FMA counted as two), bf16 on the tensor cores, HBM.
 PEAK_F32 = 67e12
@@ -1672,9 +1693,11 @@ def front_fit(card) -> None:
           f"{losses[-1]} did not fall")
 
 
-def front_bench(card) -> None:
+def front_bench(card) -> float:
     """bench_torch.py through the CLI's forwarding: the bench frame
-    forward, as value-and-grad steps, and through K4."""
+    forward, as value-and-grad steps, and through K4. Returns the forward
+    rays/s."""
+    values = []
     for extra in ([], ["--grad"], ["--backend", "jnp"]):
         out, err = run_cli(["bench", "--budget", str(FRONT_BENCH_BUDGET),
                             *extra])
@@ -1692,19 +1715,214 @@ def front_bench(card) -> None:
               f"rays/s median {stats['frame_rays_per_s_median']} min "
               f"{stats['frame_rays_per_s_min']} max "
               f"{stats['frame_rays_per_s_max']} on {card}")
+        values.append(row["value"])
+    return values[0]
 
 
-def phase_front_end(device, card) -> None:
+def phase_front_end(device, card) -> float:
     """The front end on the card, in this process through cli.main: config
     3 with its checkpoint round trip, the bench frame to a PNG, a fit on
-    the bench frame, and three bench_torch.py runs."""
+    the bench frame, and three bench_torch.py runs. Returns bench_torch.py's
+    forward rays/s."""
     os.makedirs(FRONT_DIR, exist_ok=True)
     t0 = time.perf_counter()
     front_render_config3(device, card)
     front_render_bench(card)
     front_fit(card)
-    front_bench(card)
+    forward = front_bench(card)
     print(f"[front] phase: {time.perf_counter() - t0:.1f} s")
+    return forward
+
+
+def on_rank0(mesh, fn):
+    """fn() on rank 0 while the other ranks wait; its value on rank 0,
+    None elsewhere."""
+    out = fn() if mesh.rank == 0 else None
+    if mesh.group is not None:
+        dist.barrier(group=mesh.group)
+    return out
+
+
+def close(a, b, rtol, atol) -> bool:
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def rank_label(mesh) -> str:
+    return (f"[dist] rank {mesh.rank} of {mesh.size} "
+            f"({dist.get_backend(mesh.group)})")
+
+
+def seconds_text(secs) -> str:
+    return (f"s {[round(x, 6) for x in secs]}, median "
+            f"{statistics.median(secs):.6f}")
+
+
+def dist_frame(what, scene, cfg, mesh, kernel, n_launches=None) -> list:
+    """render_sharded of the full frame: this rank launches only `kernel`
+    (n_launches times, where given), and on rank 0 the image equals
+    pt.render's bit for bit; then DIST_FRAMES timed frames of each."""
+    reset_launches()
+    img = pmesh.render_sharded(scene, cfg, mesh)
+    torch.cuda.synchronize()
+    counts = launches()
+    check_only(f"{what} sharded, rank {mesh.rank}", counts, kernel)
+    if n_launches is not None:
+        check(counts[kernel] == n_launches, f"{what} sharded, rank "
+              f"{mesh.rank}: {counts[kernel]} launches, expected "
+              f"{n_launches}")
+    sharded = synced_seconds(lambda: pmesh.render_sharded(scene, cfg, mesh),
+                             DIST_FRAMES)
+
+    def single():
+        ref = pt.render(scene, cfg, device=mesh.device)
+        diff = (img - ref).abs().max().item()
+        check(torch.equal(img, ref), f"{what}: the sharded frame differs "
+              f"from pt.render's (max abs diff {diff})")
+        secs = synced_seconds(lambda: pt.render(scene, cfg,
+                                                device=mesh.device),
+                              DIST_FRAMES)
+        return (f"; bit-equal to pt.render, whose frame {seconds_text(secs)}"
+                f" ({SHARING if mesh.size > 1 else 'one rank'})")
+
+    return [f"{rank_label(mesh)}: {what} {cfg.width}x{cfg.height} depth "
+            f"{cfg.max_depth}: launches {counts}, mean "
+            f"{img.mean().item():.6f}; sharded frame "
+            f"{seconds_text(sharded)}{on_rank0(mesh, single) or ''}"]
+
+
+def dist_grads(scene, cfg, mesh, target) -> list:
+    """loss_and_grad_sharded of the full frame against pt.grad_render with
+    the same target, at the reference's sharded bars (on rank 0); then
+    DIST_FRAMES timed calls of each."""
+
+    def sharded():
+        return pmesh.loss_and_grad_sharded(scene, cfg, scene.materials,
+                                           target, mesh)
+
+    def single_step():
+        return pt.grad_render(scene, cfg, target=target, device=mesh.device)
+
+    reset_launches()
+    loss, g = sharded()
+    torch.cuda.synchronize()
+    counts = launches()
+    check_only(f"sharded grads, rank {mesh.rank}", counts, "cluster_hit")
+    secs = synced_seconds(sharded, DIST_FRAMES)
+
+    def single():
+        loss1, g1 = single_step()
+        secs1 = synced_seconds(single_step, DIST_FRAMES)
+        check(close(loss, loss1, DIST_LOSS_RTOL, 0.0), f"sharded loss "
+              f"{loss.item()!r} vs pt.grad_render's {loss1.item()!r}")
+        for field in ("albedo", "emission"):
+            a, b = getattr(g, field), getattr(g1, field)
+            check(bool(torch.isfinite(a).all()), f"sharded {field} grads "
+                  "not finite")
+            check(close(a, b, DIST_GRAD_RTOL, DIST_GRAD_ATOL),
+                  f"sharded {field} grads vs pt.grad_render's: max abs "
+                  f"diff {(a - b).abs().max().item()}")
+        check(bool((g.emission != 0).any()), "sharded emission grads are 0")
+        return (f"; pt.grad_render {seconds_text(secs1)}, loss "
+                f"{loss1.item()!r}, "
+                f"grads within rtol {DIST_GRAD_RTOL} / atol "
+                f"{DIST_GRAD_ATOL} (max abs diff albedo "
+                f"{(g.albedo - g1.albedo).abs().max().item():.3g}, emission "
+                f"{(g.emission - g1.emission).abs().max().item():.3g})")
+
+    return [f"{rank_label(mesh)}: loss_and_grad_sharded bench: loss "
+            f"{loss.item()!r}, launches {counts}, {seconds_text(secs)}"
+            f"{on_rank0(mesh, single) or ''}"]
+
+
+def dist_train(scene, cfg, mesh, target, n_steps) -> list:
+    """n_steps of make_train_step: finite losses, falling over two or
+    more steps; the materials bit-identical on every rank."""
+    step = pmesh.make_train_step(scene, cfg, target, mesh)
+    mats, losses, secs = scene.materials, [], []
+    reset_launches()
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, mats = step(mats)
+        losses.append(loss.item())
+        secs.append(time.perf_counter() - t0)
+    counts = launches()
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(n_steps < 2 or losses[-1] < losses[0], f"train loss {losses} did "
+          "not fall")
+    flat = torch.cat([mats.albedo.reshape(-1), mats.emission.reshape(-1)])
+    every = mesh.all_gather(flat[None])
+    check(all(torch.equal(every[0], x) for x in every),
+          "the materials differ across ranks after the train steps")
+    return [f"{rank_label(mesh)}: make_train_step bench x{n_steps}: losses "
+            f"{losses}, step {seconds_text(secs)}, launches {counts}; "
+            f"materials bit-identical on all {mesh.size} ranks"]
+
+
+def dist_gloo_rank(rank) -> list:
+    """[dist] (a), on each of two gloo ranks that share cuda:0: the bench
+    frame (K1), its loss and grads, two train steps, and the config-5
+    frame (K2), against the single-process paths."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pmesh.make_mesh()
+    cfg = pt.PRESETS["bench"]
+    bench = bench_scene(cfg, mesh.device)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=mesh.device)
+    lines = dist_frame("bench (K1)", bench, cfg, mesh, "cluster_hit",
+                       2 * cfg.max_depth)
+    lines += dist_grads(bench, cfg, mesh, target)
+    lines += dist_train(bench, cfg, mesh, target, 2)
+    del bench
+    c5 = pt.PRESETS["config5"]
+    t0 = time.perf_counter()
+    scene = bench_scene(c5, mesh.device)
+    lines.append(f"{rank_label(mesh)}: config5 scene built in "
+                 f"{time.perf_counter() - t0:.2f} s")
+    lines += dist_frame("config5 (K2)", scene, c5, mesh, "pair_hit")
+    return lines
+
+
+def dist_nccl_rank(rank) -> list:
+    """[dist] (b), one NCCL rank: the bench frame against pt.render and
+    one train step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pmesh.make_mesh()
+    cfg = pt.PRESETS["bench"]
+    bench = bench_scene(cfg, mesh.device)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=mesh.device)
+    return (dist_frame("bench (K1)", bench, cfg, mesh, "cluster_hit",
+                       2 * cfg.max_depth)
+            + dist_train(bench, cfg, mesh, target, 1))
+
+
+def phase_dist(card) -> float:
+    """Sharded rendering and training on the card: (a) two gloo ranks that
+    share it, (b) one NCCL rank, (c) the scaling script through torchrun.
+    A rank that fails or outlives DIST_TIMEOUT_S fails the phase. Returns
+    the scaling script's rays/s."""
+    t0 = time.perf_counter()
+    for lines in spawn_ranks(dist_gloo_rank, 2, timeout=DIST_TIMEOUT_S):
+        for line in lines:
+            print(line)
+    for line in spawn_ranks(dist_nccl_rank, 1, backend="nccl",
+                            timeout=DIST_TIMEOUT_S)[0]:
+        print(line)
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    t1 = time.perf_counter()
+    out = subprocess.run(SCALING_CMD, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=SCALING_TIMEOUT_S)
+    for name, text in (("out", out.stdout), ("err", out.stderr)):
+        for line in text.splitlines():
+            print(f"[dist]   {name}: {line}")
+    check(out.returncode == 0, f"scaling script: exit {out.returncode}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    check(set(row) == {"metric", "value", "unit", "scaling_eff"}
+          and row["value"] > 0, f"scaling script: last line {row}")
+    print(f"[dist] torchrun --nproc_per_node 1 scaling.py: {row['value']} "
+          f"{row['unit']} ({row['metric']}), {time.perf_counter() - t1:.1f} "
+          f"s in all, on {card}")
+    print(f"[dist] phase: {time.perf_counter() - t0:.1f} s")
+    return row["value"]
 
 
 def kernel_entry(name, n_launches, k) -> dict:
@@ -1779,7 +1997,11 @@ def main() -> int:
     phase_grad_fd(bench, device)
     del bench
     torch.cuda.empty_cache()
-    phase_front_end(device, card)
+    scaling = phase_dist(card)
+    forward = phase_front_end(device, card)
+    print(f"[dist] the scaling script's bench frame over 1 NCCL rank "
+          f"{scaling} rays/s beside bench_torch.py's forward {forward} "
+          f"rays/s (ratio {scaling / forward:.4f}) on {card}")
     print(json.dumps({"kernels": [
         kernel_entry("cluster_hit", k1_launches, k1),
         kernel_entry("pair_hit", k2_launches, k2),

@@ -27,24 +27,32 @@ from ..engine.wavefront import trace_sample
 from ..scene.model import Materials, Scene
 
 
-def render_image(scene: Scene, cfg: RenderConfig, materials: Materials):
-    """Differentiable full render → (H, W, 3) on the scene's device.
+def render_image(scene: Scene, cfg: RenderConfig, materials: Materials,
+                 pixel_ids: torch.Tensor | None = None):
+    """Differentiable full render → (H, W, 3) on the scene's device; given
+    `pixel_ids` (absolute row-major ids on that device), the (N, 3)
+    radiance of those pixels instead.
 
     With spp > 1 each sample is checkpointed: the backward pass recomputes
     it, so memory stays that of one sample (the sampler is keyed by
     absolute ids, so the recompute is exact).
     """
     dev = scene.geometry.tri_v0.device
-    ids = torch.arange(cfg.n_pixels, dtype=torch.int64, device=dev)
+    ids = pixel_ids
+    if ids is None:
+        ids = torch.arange(cfg.n_pixels, dtype=torch.int64, device=dev)
     args = (scene.geometry, materials, scene.camera, scene.lights, cfg, ids)
     if cfg.spp == 1:
         acc = trace_sample(*args, 0)
     else:
-        acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=dev)
+        acc = torch.zeros((ids.shape[0], 3), dtype=torch.float32, device=dev)
         for i in range(cfg.spp):
             acc = acc + checkpoint(trace_sample, *args, i,
                                    use_reentrant=False)
-    return (acc / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
+    img = acc / float(cfg.spp)
+    if pixel_ids is not None:
+        return img
+    return img.reshape(cfg.height, cfg.width, 3)
 
 
 def default_loss(img, target):

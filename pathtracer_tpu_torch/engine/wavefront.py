@@ -413,20 +413,26 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
 
 @torch.inference_mode()
 def render_accumulate(scene: Scene, cfg: RenderConfig, materials=None,
-                      spp_start: int = 0, n_spp: int | None = None):
+                      spp_start: int = 0, n_spp: int | None = None,
+                      pixel_ids: torch.Tensor | None = None):
     """Sum of n_spp samples starting at spp_start, as a flat (N, 3) tensor,
-    on the scene's device. Chunks at different spp_start values add up to
-    the all-at-once render because samples are keyed by spp index."""
+    on the scene's device, over `pixel_ids` (absolute row-major ids on that
+    device; default all cfg.n_pixels in order). Chunks at different
+    spp_start values add up to the all-at-once render because samples are
+    keyed by spp index; any split of the ids gives the same per-pixel sums
+    because they are keyed by pixel id."""
     mats = materials if materials is not None else scene.materials
     if n_spp is None:
         n_spp = cfg.spp
     dev = scene.geometry.tri_v0.device
-    pixel_ids = torch.arange(cfg.n_pixels, dtype=torch.int64, device=dev)
+    if pixel_ids is None:
+        pixel_ids = torch.arange(cfg.n_pixels, dtype=torch.int64, device=dev)
     args = (scene.geometry, mats, scene.camera, scene.lights, cfg,
             pixel_ids)
     if n_spp == 1:
         return trace_sample(*args, spp_start)
-    acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
+                      device=dev)
     for i in range(n_spp):
         acc = acc + trace_sample(*args, spp_start + i)
     return acc

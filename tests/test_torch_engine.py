@@ -244,6 +244,13 @@ def test_port_imports_no_jax():
         "from pathtracer_tpu_torch import band_profile  # noqa: F401\n"
         "from pathtracer_tpu_torch.ops import visit_probe\n"
         "assert visit_probe.main(['split_pre', '--device', 'cpu']) == 0\n"
+        "from pathtracer_tpu_torch.parallel import mesh as pmesh\n"
+        "from pathtracer_tpu_torch.parallel import scaling  # noqa: F401\n"
+        "cfg = pt.PRESETS['bench'].replace(width=8, height=8)\n"
+        "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene)), cfg)\n"
+        "img = pmesh.render_sharded(scene, cfg, "
+        "pmesh.make_mesh(device='cpu'))\n"
+        "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('pathtracer_tpu.') or m == 'pathtracer_tpu']\n"
         "assert not bad, bad\n"
