@@ -17,13 +17,20 @@ and bounce-1 ones), runs the probe entry point, renders the golden scenes
 through the cluster, grid, BVH and stream routes and compares them with
 ``tests/golden``, then drives every path at full size: the ``bench``
 preset (cornell_mesh, cluster route, K1; its frame also against the BVH
-walk's image, and each of its 8 K1 calls timed) and the same scene through
-the BVH walk (K4); ``config2`` and ``config3`` (the BVH walk, K4);
-``config5`` (big_mesh, 2M triangles, grid route, K2) and the same scene
-through the BVH walk (K4) and through the stream route (K3), each rendered
-and timed, the grid's and the stream's frames also against the same-seed
-frame through K4; a value-and-grad step of the full bench frame through
-K1 and through K4; material gradients against central differences; the
+walk's image, each of its 8 K1 calls timed, and K1's roofline over the
+bench band's three passes at 262,144 rays per call, ``roofline.py``) and
+the same scene through the BVH walk (K4); ``config2`` and ``config3`` (the
+BVH walk, K4); ``config5`` (big_mesh, 2M triangles, grid route, K2) and
+the same scene through the BVH walk (K4) and through the stream route
+(K3), each rendered and timed, the grid's and the stream's frames also
+against the same-seed frame through K4, and the grid profile of the same
+three passes on the config-5 scene with its profiler split of K2 against
+its glue (``grid_profile.py --trace``); a value-and-grad step of the full
+bench frame through K1 and through K4; material gradients against central
+differences; the check suite (``checks.py --full``: K1-K4 against brute
+force, the BVH walk and each other, the engine against the port's oracle
+on config 1, cornell_sphlight with and without MIS and the furnace, and a
+value-and-grad step against the oracle's finite differences); the
 sharded path (``parallel/mesh.py``) in child processes: over two gloo
 ranks that share the card, the full bench frame (K1) and the full config-5
 frame (K2), each bit-equal to the single-process frame and timed beside
@@ -59,8 +66,9 @@ import torch
 import torch.distributed as dist
 
 import pathtracer_tpu_torch as pt
-from pathtracer_tpu_torch import cli
+from pathtracer_tpu_torch import checks, cli
 from pathtracer_tpu_torch import constants as C
+from pathtracer_tpu_torch import grid_profile, roofline
 from pathtracer_tpu_torch.accel import native
 from pathtracer_tpu_torch.accel.auto import prepare_accel
 from pathtracer_tpu_torch.accel.build import with_bvh
@@ -76,8 +84,39 @@ from pathtracer_tpu_torch.ops import traverse_bvh as tb
 from pathtracer_tpu_torch.ops import visit_probe as vp
 from pathtracer_tpu_torch.parallel import mesh as pmesh
 from pathtracer_tpu_torch.parallel.scaling import spawn_ranks
+# The bars the checks share: the reference's intersection t bar, material
+# agreement, and its engine bar of one route against another (a pixel is
+# bad where a channel differs by more than ENGINE_BAR + ENGINE_BAR * |ref|,
+# and fewer than ENGINE_BAD_PIXELS of the pixels are bad).
+from pathtracer_tpu_torch.checks import (
+    ENGINE_BAD_PIXELS,
+    ENGINE_BAR,
+    MAT_AGREE,
+    T_ATOL,
+    T_RTOL,
+)
+# The bound arithmetic: the card's peaks, the operations per test and the
+# bytes of a call.
+from pathtracer_tpu_torch.roofline import (
+    OPS_PER_MT_TEST,
+    OPS_PER_NODE,
+    PEAK_BF16,
+    PEAK_BYTES,
+    PEAK_F32,
+    add_bound,
+    add_split_bound,
+    k1_bytes,
+    k4_bytes,
+    nbytes,
+    new_bound,
+    reference_work_ms,
+    split_bytes,
+    tri_tests,
+    warp_tests,
+)
 from pathtracer_tpu_torch.sampling import rng as rng_mod
 from pathtracer_tpu_torch.scene import builder
+from pathtracer_tpu_torch.utils.profiling import card_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -107,8 +146,6 @@ SOURCES = ("intersect_cluster", "intersect_pair", "intersect_stream",
            "traverse_bvh", "visit_probe")
 CHECK_PIXELS = 256 * 1024  # rays per query in the kernel-vs-plain phases
 BVH_CHECK_PIXELS_C5 = 64 * 1024  # K4 vs plain on the config-5 scene
-T_RTOL, T_ATOL = 4e-3, 2e-4  # the reference's cluster-vs-brute t bar
-MAT_AGREE = 0.999
 # K1-K3 (the split product on the tensor cores) against their plain
 # versions on the split table: only the summation order inside an mma
 # k-step differs, so hit masks agree on all but 1e-5 of rays and t within
@@ -139,11 +176,6 @@ SPLIT_T_FLOOR = 1e-6
 SPLIT_TERM_ERR = 2.0 ** -14
 GRID_BAR = 2e-3  # the reference's grid-vs-jnp render bar: |d| <= a + a|ref|
 GRID_BAD_PIXELS = 0.002  # ... on all but this share of pixels
-# The reference's engine bar of the cluster route against the BVH walk
-# (scripts/tpu_checks.py): a pixel is bad where a channel differs by more
-# than ENGINE_BAR + ENGINE_BAR * |bvh|, and fewer than ENGINE_BAD_PIXELS of
-# the pixels are bad.
-ENGINE_BAR, ENGINE_BAD_PIXELS = 5e-3, 0.005
 STREAM_FRAME_LIMIT_S = 120.0  # the stream frame runs at 1024^2 within this
 STREAM_PROBE_SIDE = 512  # ... judged by a frame of this side first
 PROBE_RTOL, PROBE_ATOL = 1e-5, 1e-6  # K5 vs its plain version
@@ -172,45 +204,13 @@ SCALING_TIMEOUT_S = 240
 SHARING = "2 ranks share one card: overhead, not scaling"
 # The reference's sharded-vs-single bars (tests/dist/test_sharding.py).
 DIST_LOSS_RTOL, DIST_GRAD_RTOL, DIST_GRAD_ATOL = 1e-5, 1e-4, 1e-7
-# The card's peak rates (NVIDIA's H100 SXM data sheet, dense): f32 on the
-# CUDA cores (an FMA counted as two), bf16 on the tensor cores, HBM.
-PEAK_F32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
-# f32 operations per (ray, triangle) test in the f32 form (visit_plain's
-# product on the CUDA cores, the port's cluster kernel before the tensor
-# cores): the four feature dot products (40 multiplies + 36 adds), four
-# sign multiplies, u + v and |det| * T_MIN (compares and selects not
-# counted).
-OPS_PER_TRI_TEST = 82
-# The same test in visit_mma.cuh's form: the four split products, 30 bf16
-# multiply-adds each, on the tensor cores, and the epilogue's 6 f32
-# operations (four sign multiplies, u + v, |det| * T_MIN) on the CUDA cores.
-TC_OPS_PER_TRI_TEST = 4 * 30 * 2
-EPILOGUE_OPS_PER_TRI_TEST = 6
-# f32 operations per box test of traverse_bvh.cu (two per pair entry the
-# walk fetches: entry 0 tests the root and a box no ray hits): two slab
-# differences and products per axis (12), their min and max (6), the
-# entry/exit reductions (4) and two compares.
-OPS_PER_NODE = 24
-# f32 operations per Moller-Trumbore test of traverse_bvh.cu:tri_test:
-# three cross terms for pvec (9), det (5), its reciprocal (1), tvec (3),
-# u (5 + 1), three cross terms for qvec (9), v (5 + 1), t (5 + 1) and
-# u + v (1); compares not counted.
-OPS_PER_MT_TEST = 46
+ROOFLINE_REPS = 6  # [roofline]: best of this many timed batches per pass
+GRID_PROFILE_REPS = 3  # [grid_profile]: best of this many timed calls
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def reset_launches() -> None:
@@ -433,90 +433,15 @@ def f32_line(counts) -> str:
 
 
 def new_totals() -> dict:
-    return {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "bound_ms": 0.0,
-            "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
+    """A kernel's totals for the kernels line: its times, error and bound."""
+    return {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+            "library_ms": None, **new_bound()}
 
 
 def add_totals(out, ms, plain_ms, err) -> None:
     out["ms"] += ms
     out["plain_ms"] += plain_ms
     out["max_abs_err"] = max(out["max_abs_err"], err)
-
-
-def nbytes(*tensors) -> int:
-    return sum(x.numel() * x.element_size() for x in tensors)
-
-
-def add_bound(out, n_bytes, n_ops, peak=PEAK_F32) -> float:
-    """Adds one call's bound to out: the larger of its bytes (each input
-    read once, each output written once) over the memory rate and its
-    operations over `peak`; returns it in ms."""
-    bytes_ms = n_bytes / PEAK_BYTES * 1e3
-    ops_ms = n_ops / peak * 1e3
-    out["bytes_ms"] += bytes_ms
-    out["ops_ms"] += ops_ms
-    out["bound_ms"] += max(bytes_ms, ops_ms)
-    return max(bytes_ms, ops_ms)
-
-
-def tri_tests(visits, rays_per_block) -> int:
-    """(ray, triangle) tests of visits (per block) cluster visits of
-    rays_per_block rays (a tensor or an int per block) x 128 triangles."""
-    return int((visits.to(torch.int64) * rays_per_block).sum()) \
-        * ic.CLUSTER_TRIS
-
-
-def warp_tests(warp_visits) -> int:
-    """(ray, triangle) tests the walk kernels' (K1, K3) warps computed:
-    warp visits x 64 rays x 128 triangles. A warp visit the box skip drops
-    does no test, so it is no work of the bound."""
-    return int(warp_visits.to(torch.int64).sum()) * ic.WARP_RAYS \
-        * ic.CLUSTER_TRIS
-
-
-def split_ops_ms(tests) -> float:
-    """The least time of the operations of `tests` (ray, triangle) tests in
-    visit_mma.cuh's form: the split products at the bf16 tensor rate or the
-    epilogue at the f32 rate, whichever is longer."""
-    return max(tests * TC_OPS_PER_TRI_TEST / PEAK_BF16,
-               tests * EPILOGUE_OPS_PER_TRI_TEST / PEAK_F32) * 1e3
-
-
-def split_bytes(feat_split, visited) -> int:
-    """Bytes of the split table's clusters among the ids `visited`: each
-    distinct cluster read once, the clusters no block visits not at all."""
-    return int(torch.unique(visited).numel()) * nbytes(feat_split[0])
-
-
-def add_split_bound(out, n_bytes, tests) -> tuple:
-    """Adds one call of a split kernel (K1-K3) to out at its bound in
-    visit_mma.cuh's form; returns that bound and the same tests' bound in
-    the f32 form (82 f32 operations per test), in ms."""
-    bytes_ms = n_bytes / PEAK_BYTES * 1e3
-    ops_ms = split_ops_ms(tests)
-    out["bytes_ms"] += bytes_ms
-    out["ops_ms"] += ops_ms
-    out["bound_ms"] += max(bytes_ms, ops_ms)
-    return (max(bytes_ms, ops_ms),
-            max(bytes_ms, tests * OPS_PER_TRI_TEST / PEAK_F32 * 1e3))
-
-
-def reference_work_ms(n_bytes, visits) -> float:
-    """The bound in visit_mma.cuh's form on the reference's work, which the
-    box skip does not cut: every block visit x 512 rays x 128 triangles."""
-    return max(n_bytes / PEAK_BYTES * 1e3,
-               split_ops_ms(tri_tests(visits, ic.RAY_BLOCK)))
-
-
-def k1_bytes(args, outs) -> int:
-    """Bytes of one cluster_hit call: its inputs but the table and its
-    outputs once each, and the split table's clusters its blocks walked,
-    each distinct cluster once."""
-    cand, count, tnear, rayf, feat, box_lo, box_hi = args
-    walked = torch.arange(cand.shape[1], device=cand.device)[None, :] \
-        < outs[2][:, None]
-    return nbytes(cand, count, tnear, rayf, box_lo, box_hi, *outs) \
-        + split_bytes(feat, cand[walked])
 
 
 def query_label(i) -> str:
@@ -647,14 +572,6 @@ def record_bvh_queries(scene, cfg, pixel_ids):
     finally:
         tb.bvh_hit = real
     return calls
-
-
-def k4_bytes(g, seen, *arrays) -> int:
-    """Bytes of one bvh_hit call: the distinct pair entries and triangles
-    its walks read (`seen`, from bvh_hit_ordered_plain), once each, and the
-    rays and outputs."""
-    return (int(seen[0].sum()) * nbytes(g.bvh_pairs[0])
-            + int(seen[1].sum()) * nbytes(g.bvh_tris[0]) + nbytes(*arrays))
 
 
 def phase_bvh_vs_plain(label, scene, cfg, n_pixels, device, out,
@@ -1925,6 +1842,59 @@ def phase_dist(card) -> float:
     return row["value"]
 
 
+def phase_roofline(bench, device) -> None:
+    """K1's roofline over the bench band's three passes (roofline.py) at
+    the reference's rays per call, on the bench scene: only K1."""
+    t0 = time.perf_counter()
+    reset_launches()
+    rows = roofline.run(bench, pt.PRESETS["bench"], roofline.DEFAULT_RAYS,
+                        ROOFLINE_REPS, device)
+    counts = launches()
+    check_only("roofline", counts, "cluster_hit")
+    for r in rows:
+        check(r["kernel_ms"] > 0 and r["bound_ms"] > 0
+              and math.isfinite(r["tflops"]) and r["live"] > 0,
+              f"roofline {r['pass']}: {r}")
+    print(f"[roofline] phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}")
+
+
+def phase_grid_profile(scene, device) -> None:
+    """The grid profile (grid_profile.py) on the config-5 scene, with its
+    profiler split of the bounce pass: only K2, and K2 device time seen."""
+    t0 = time.perf_counter()
+    reset_launches()
+    out = grid_profile.run(scene, pt.PRESETS["config5"],
+                           roofline.DEFAULT_RAYS, GRID_PROFILE_REPS, device,
+                           trace=True)
+    counts = launches()
+    check_only("grid_profile", counts, "pair_hit")
+    check(all(info["visits"] > 0 for info in out["stats"]),
+          f"grid_profile: a pass with no pair-kernel visit: {out['stats']}")
+    split = out["trace"]["split_ms"]
+    check(split[grid_profile.K2] > 0, "grid_profile: the "
+          f"profiler saw no K2 device time ({split})")
+    print(f"[grid_profile] phase: {time.perf_counter() - t0:.1f} s, "
+          f"launches {counts}")
+
+
+def phase_checks() -> None:
+    """The card's check suite (checks.py --full): every check passes, and
+    the suite launched K1-K4 and no probe."""
+    t0 = time.perf_counter()
+    reset_launches()
+    rc = checks.main(["--full"])
+    counts = launches()
+    check(rc == 0, f"checks --full: exit {rc}")
+    missing = [k for k in ("cluster_hit", "pair_hit", "stream_hit",
+                           "bvh_hit") if counts[k] == 0]
+    check(not missing, f"checks --full never launched {missing}")
+    check(not any(counts[k] for k in PROBES), f"checks --full launched a "
+          f"probe: {counts}")
+    print(f"[checks] phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}")
+
+
 def kernel_entry(name, n_launches, k) -> dict:
     source, replaces, _, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -1941,6 +1911,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is false); this check runs on the "
                          "GPU only")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -1965,6 +1936,7 @@ def main() -> int:
         phase_goldens(device)
         k1_launches = phase_main_path(bench, device, card)
         phase_k1_frame(bench, device, card)
+        phase_roofline(bench, device)
         bench_k4 = pt.PRESETS["bench"].replace(backend="jnp")
         time_frames("bench backend=jnp", frame_args(bench, bench_k4, device),
                     5, card, "bvh_hit")
@@ -1981,6 +1953,7 @@ def main() -> int:
                            device, k4, depth=2)
         time_frames("config5 backend=jnp", frame_args(scene, c5_k4, device),
                     3, card, "bvh_hit")
+        phase_grid_profile(scene, device)
         del scene
         torch.cuda.empty_cache()
 
@@ -1997,11 +1970,14 @@ def main() -> int:
     phase_grad_fd(bench, device)
     del bench
     torch.cuda.empty_cache()
+    phase_checks()
     scaling = phase_dist(card)
     forward = phase_front_end(device, card)
     print(f"[dist] the scaling script's bench frame over 1 NCCL rank "
           f"{scaling} rays/s beside bench_torch.py's forward {forward} "
           f"rays/s (ratio {scaling / forward:.4f}) on {card}")
+    print(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
+          f" s, the builds included")
     print(json.dumps({"kernels": [
         kernel_entry("cluster_hit", k1_launches, k1),
         kernel_entry("pair_hit", k2_launches, k2),

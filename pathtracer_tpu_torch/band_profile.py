@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import statistics
-import subprocess
 import time
 
 import torch
@@ -31,13 +30,7 @@ from .diff.render import value_and_grad
 from .engine import wavefront
 from .engine.camera import tiled_pixel_ids
 from .scene.builder import build_scene
-
-
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+from .utils.profiling import card_line, device_kernel_times
 
 
 def _runner(scene, cfg, ids, grad: bool):
@@ -87,28 +80,18 @@ def main(argv=None) -> int:
         run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.reps):
-            run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / args.reps
+    by_name = {name: (ms / args.reps, n) for name, (ms, n)
+               in device_kernel_times(run, args.reps).items()}
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    n_kernels = sum(n for _, n in by_name.values())
     wall_s = statistics.median(walls)
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        tot = by_name.setdefault(e.name, [0.0, 0])
-        tot[0] += e.device_time_total / 1e3 / args.reps
-        tot[1] += 1
     what = "grad step" if args.grad else "frame"
     print(f"[profile] {args.preset} backend={cfg.backend} {what} "
           f"{cfg.width}x{cfg.height} depth {cfg.max_depth}: wall s "
           f"{[round(w, 6) for w in walls]}, "
           f"median {wall_s:.6f}; device busy {busy_ms:.3f} ms per run "
-          f"({len(kernels) // args.reps} kernels), idle "
-          f"{1.0 - busy_ms / 1e3 / wall_s:.3f}; on {_card()}")
+          f"({n_kernels // args.reps} kernels), idle "
+          f"{1.0 - busy_ms / 1e3 / wall_s:.3f}; on {card_line()}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
     for name, (ms, n) in top:
         print(f"[profile]   {ms:10.3f} ms {100 * ms / busy_ms:5.1f}% "

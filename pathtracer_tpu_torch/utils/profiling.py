@@ -5,12 +5,17 @@
   * `device_barrier(x)` — waits for the device that holds `x`, then
     fetches one element to the host: PyTorch returns before the card has
     finished, so timing code ends every timed region with it;
-  * `Timer` — wall-clock timer using the barrier.
+  * `Timer` — wall-clock timer using the barrier;
+  * `device_kernel_times(fn, reps)` — each device kernel's device time and
+    launches over reps profiled runs of fn;
+  * `card_line()` — the card's name and power limit as nvidia-smi gives
+    them, written beside every number measured on the card.
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 
 import numpy as np
@@ -61,3 +66,32 @@ class Timer:
 
 def rays_per_second(n_rays: int, seconds: float) -> float:
     return n_rays / max(seconds, 1e-12)
+
+
+def device_kernel_times(fn, reps: int = 1) -> dict:
+    """Runs fn() reps times under torch.profiler (CPU and CUDA activity,
+    then a synchronise) and returns {kernel name: [device ms, launches]}
+    summed over the runs; empty where no device kernel ran."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot = out.setdefault(e.name, [0.0, 0])
+            tot[0] += e.device_time_total / 1e3
+            tot[1] += 1
+    return out
+
+
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]

@@ -251,6 +251,12 @@ def test_port_imports_no_jax():
         "img = pmesh.render_sharded(scene, cfg, "
         "pmesh.make_mesh(device='cpu'))\n"
         "assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())\n"
+        "from pathtracer_tpu_torch import checks, grid_profile  # noqa: F401\n"
+        "from pathtracer_tpu_torch import roofline  # noqa: F401\n"
+        "from pathtracer_tpu_torch.oracle import tracer\n"
+        "cfg = pt.PRESETS['config1'].replace(width=8, height=8)\n"
+        "img = tracer.render(pt.build_scene(cfg.scene), cfg)\n"
+        "assert img.shape == (8, 8, 3) and img.mean() > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('pathtracer_tpu.') or m == 'pathtracer_tpu']\n"
         "assert not bad, bad\n"
