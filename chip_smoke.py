@@ -13,14 +13,18 @@ product at the reference's bar, the cluster kernel on bounce 0's and
 bounce 1's queries; the BVH walk, K4, against both of its plain versions,
 bit for bit against its mirror and at the reference's bar against the
 skip-link walk, on config 3's bounce-0 queries and config 5's bounce-0
-and bounce-1 ones), runs the probe entry point, renders the golden scenes
+and bounce-1 ones; and on cornell_mesh's BVH built with leaves of up to 4,
+6 and 7 triangles, against brute force, with the bench frame through it),
+runs the probe entry point, renders the golden scenes
 through the cluster, grid, BVH and stream routes and compares them with
 ``tests/golden``, then drives every path at full size: the ``bench``
 preset (cornell_mesh, cluster route, K1; its frame also against the BVH
 walk's image, each of its 8 K1 calls timed, and K1's roofline over the
 bench band's three passes at 262,144 rays per call, ``roofline.py``) and
 the same scene through the BVH walk (K4); ``config2`` and ``config3`` (the
-BVH walk, K4); ``config5`` (big_mesh, 2M triangles, grid route, K2) and
+BVH walk, K4); ``config5`` (big_mesh, 2M triangles, its native BVH and
+the stream route's cluster table checked by check_invariants and
+check_cluster_invariants; grid route, K2) and
 the same scene through the BVH walk (K4) and through the stream route
 (K3), each rendered and timed, the grid's and the stream's frames also
 against the same-seed frame through K4, and the grid profile of the same
@@ -71,8 +75,14 @@ from pathtracer_tpu_torch import constants as C
 from pathtracer_tpu_torch import grid_profile, roofline
 from pathtracer_tpu_torch.accel import native
 from pathtracer_tpu_torch.accel.auto import prepare_accel
-from pathtracer_tpu_torch.accel.build import with_bvh
+from pathtracer_tpu_torch.accel.build import check_invariants, with_bvh
+from pathtracer_tpu_torch.accel.clusters import (
+    ClusterSet,
+    check_cluster_invariants,
+)
+from pathtracer_tpu_torch.accel.traverse import hit_from_index, mt_test
 from pathtracer_tpu_torch.config import RenderConfig
+from pathtracer_tpu_torch.engine import intersect as isect
 from pathtracer_tpu_torch.engine import wavefront
 from pathtracer_tpu_torch.diff import render as dr
 from pathtracer_tpu_torch.engine.camera import camera_rays, tiled_pixel_ids
@@ -94,6 +104,7 @@ from pathtracer_tpu_torch.checks import (
     MAT_AGREE,
     T_ATOL,
     T_RTOL,
+    bad_pixels,
 )
 # The bound arithmetic: the card's peaks, the operations per test and the
 # bytes of a call.
@@ -205,6 +216,12 @@ SHARING = "2 ranks share one card: overhead, not scaling"
 # The reference's sharded-vs-single bars (tests/dist/test_sharding.py).
 DIST_LOSS_RTOL, DIST_GRAD_RTOL, DIST_GRAD_ATOL = 1e-5, 1e-4, 1e-7
 ROOFLINE_REPS = 6  # [roofline]: best of this many timed batches per pass
+# [max_leaf]: K4 on cornell_mesh's BVH built with leaves of up to m
+# triangles, on the bench frame's bounce-0 rays and this many random rays
+# inside the box, against brute force taken this many rays at a time.
+LEAF_SIZES = (4, 6, 7)
+LEAF_RANDOM_RAYS = 65_536
+BRUTE_CHUNK = 8192
 GRID_PROFILE_REPS = 3  # [grid_profile]: best of this many timed calls
 
 
@@ -561,7 +578,7 @@ def record_bvh_queries(scene, cfg, pixel_ids):
     calls = []
     real = tb.bvh_hit
 
-    def recording(nodes, pairs, tris, o, d, max_leaf=4):
+    def recording(nodes, pairs, tris, o, d, max_leaf=None):
         calls.append((o, d))
         return real(nodes, pairs, tris, o, d, max_leaf)
 
@@ -656,6 +673,158 @@ def phase_bvh_vs_plain(label, scene, cfg, n_pixels, device, out,
     print(f"[kernel] bvh_hit {label}: counting both whole tables (nodes and "
           f"triangles) as read by every call, the bound would be "
           f"{whole_ms:.4f} ms over these {len(queries)} calls")
+
+
+def random_box_rays(n, seed, device):
+    """tests/unit/test_bvh.py:_random_rays: origins inside the Cornell box,
+    directions uniform on the sphere, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    o = (rng.random((n, 3)) * 0.9 + 0.05).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
+
+
+def walk_rounding_brute(g, o, d):
+    """Closest triangle hit of each ray over every triangle, in the walks'
+    own rounding (accel/traverse.py:mt_test: each product and sum rounded
+    on its own, as K4 rounds), with no BVH: (t, tri), T_FAR and -1 on a
+    miss; ties keep the lower index. For a few rays at a time."""
+    n_tris = g.tri_v0.shape[0]
+    idx = torch.arange(n_tris, device=o.device)
+    ts, tris = [], []
+    for r in range(o.shape[0]):
+        t, ok = mt_test(g.tri_v0, g.tri_e1, g.tri_e2, idx,
+                        o[r].expand(n_tris, 3), d[r].expand(n_tris, 3))
+        v, i = torch.where(ok, t, C.T_FAR).min(0)
+        ts.append(v)
+        tris.append(torch.where(v < C.T_FAR, i, -1))
+    return torch.stack(ts), torch.stack(tris)
+
+
+def rays_off_brute(g, o, d, hit, tri) -> dict:
+    """A walk's hits (t, n, mat) and triangles against brute force
+    (engine/intersect.py:brute), BRUTE_CHUNK rays at a time.
+
+    A ray is off where its t or normal is outside T_RTOL / T_ATOL of brute
+    force's or its material differs, unless it is
+      - an equal-t tie: t within the bar, and the walk's triangle hit in
+        brute force's arithmetic at a t within the bar of brute force's
+        best (two triangles of a shared edge); or
+      - a rounding edge: the walk's t is bit for bit the closest hit over
+        every triangle in the walks' own rounding (walk_rounding_brute;
+        an equal t may name another triangle), so only brute force's
+        rounding differs
+        (its cross products may contract to FMAs on the card).
+    A triangle the walk leaves untested gives a farther t or a miss in
+    both yardsticks: off. Returns the counts (off, ties, ties with t
+    bit-equal to brute force's, rounding edges), the largest |dt| of a
+    tie, and up to 4 lines describing the rays that are not ties."""
+    t, n, mat = hit
+    out = {"off": 0, "ties": 0, "exact": 0, "rounding": 0, "tie_dt": 0.0,
+           "rays": []}
+    for s in range(0, o.shape[0], BRUTE_CHUNK):
+        sl = slice(s, s + BRUTE_CHUNK)
+        t_b, n_b, m_b = isect.brute(g, o[sl], d[sl])
+        close = torch.isclose(t[sl], t_b, rtol=T_RTOL, atol=T_ATOL)
+        bad = ~(close & (mat[sl] == m_b) & torch.isclose(
+            n[sl], n_b, rtol=T_RTOL, atol=T_ATOL).all(1))
+        if not bool(bad.any()):
+            continue
+        idx = bad.nonzero()[:, 0]
+        o_x, d_x = o[sl][idx], d[sl][idx]
+        t_x, k, t_bx = t[sl][idx], tri[sl][idx].long(), t_b[idx]
+        tt = isect.intersect_tris_brute(o_x, d_x, g.tri_v0, g.tri_e1,
+                                        g.tri_e2)
+        t_at_k = tt.gather(1, k.clamp(min=0)[:, None])[:, 0]
+        tie = close[idx] & (k >= 0) & torch.isclose(
+            t_at_k, t_bx, rtol=T_RTOL, atol=T_ATOL)
+        out["ties"] += int(tie.sum())
+        out["exact"] += int((tie & (t_x == t_bx)).sum())
+        if bool(tie.any()):
+            out["tie_dt"] = max(out["tie_dt"],
+                                (t_x - t_bx)[tie].abs().max().item())
+        rest = (~tie).nonzero()[:, 0]
+        t_w, k_w = walk_rounding_brute(g, o_x[rest], d_x[rest])
+        same = t_w == t_x[rest]
+        out["rounding"] += int(same.sum())
+        out["off"] += int((~same).sum())
+        for j, r in enumerate(rest.tolist()):
+            if len(out["rays"]) < 4:
+                out["rays"].append(
+                    f"ray {s + int(idx[r])}: o {o_x[r].tolist()} d "
+                    f"{d_x[r].tolist()}; walk t {t_x[r].item():.9g} "
+                    f"triangle {int(k[r])}; brute force t "
+                    f"{t_bx[r].item():.9g} triangle "
+                    f"{int(tt[r].argmin())}, its t at the walk's triangle "
+                    f"{t_at_k[r].item():.9g}; walks' rounding over every "
+                    f"triangle t {t_w[j].item():.9g} triangle "
+                    f"{int(k_w[j])}: "
+                    f"{'rounding edge' if bool(same[j]) else 'OFF'}")
+    return out
+
+
+def phase_max_leaf(device, card: str) -> None:
+    """[max_leaf]: every triangle of a leaf is tested. K4 on cornell_mesh's
+    BVH built with leaves of up to m triangles (with_bvh(max_leaf=m,
+    engine="numpy"), m in LEAF_SIZES), on the bench frame's bounce-0
+    closest-hit rays (recorded from the m = 4 scene) and LEAF_RANDOM_RAYS
+    random rays inside the box: no ray off brute force at any m, equal-t
+    ties printed. K4's mirror shares the walk's leaf bound, so brute force
+    is the yardstick. Then the bench frame via K4 on the m = 6 BVH against
+    the same-seed frame on the m = 4 one, which is the default BVH
+    (with_bvh's numpy build below 100k triangles), at the engine bar."""
+    t_start = time.perf_counter()
+    cfg = pt.PRESETS["bench"].replace(backend="jnp")
+    base = builder.build_scene(cfg.scene)
+    scenes = {m: with_bvh(base, max_leaf=m, engine="numpy").to(device)
+              for m in LEAF_SIZES}
+    ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width, device=device)
+    o_cam, d_cam = record_bvh_queries(scenes[4], cfg.replace(max_depth=1),
+                                      ids)[0]
+    o_rnd, d_rnd = random_box_rays(LEAF_RANDOM_RAYS, 11, device)
+    o = torch.cat([o_cam, o_rnd]).contiguous()
+    d = torch.cat([d_cam, d_rnd]).contiguous()
+    ms = {}
+    for m, scene in scenes.items():
+        g = scene.geometry
+        tables = (g.bvh_nodes, g.bvh_pairs, g.bvh_tris)
+        n0 = tb.LAUNCHES
+        t, tri, _, tests = tb.bvh_hit(*tables, o, d)
+        torch.cuda.synchronize()
+        check(tb.LAUNCHES == n0 + 1, "bvh_hit launched the kernel")
+        res = rays_off_brute(g, o, d, hit_from_index(g, o, d, t, tri), tri)
+        ms[m] = cuda_ms(lambda: tb.bvh_hit(*tables, o, d), 10)
+        print(f"[max_leaf] m={m}: largest leaf {int(g.bvh_count.max())}, "
+              f"{g.bvh_lo.shape[0]} nodes; K4 on {o.shape[0]} rays "
+              f"({o_cam.shape[0]} bench bounce-0 + {o_rnd.shape[0]} random): "
+              f"{int((tri >= 0).sum())} hits, triangle tests per ray "
+              f"{tests.sum().item() / o.shape[0]:.3f}; vs brute force: "
+              f"{res['off']} rays off, {res['ties']} equal-t ties "
+              f"({res['exact']} with t bit-equal to brute force's, max |dt| "
+              f"{res['tie_dt']:.3g}), {res['rounding']} rounding edges "
+              f"(K4 bit-equal to every triangle tested in the walks' "
+              f"rounding); K4 {ms[m]:.4f} ms on {card}")
+        for line in res["rays"]:
+            print(f"[max_leaf] m={m} {line}")
+        check(res["off"] == 0, f"max_leaf={m}: {res['off']} rays off brute "
+              "force")
+    imgs = {}
+    for m in (4, 6):
+        reset_launches()
+        imgs[m] = pt.render(scenes[m], cfg)
+        torch.cuda.synchronize()
+        check_only(f"bench via K4, max_leaf={m}", launches(), "bvh_hit")
+        check_image(f"bench via K4, max_leaf={m}", imgs[m], cfg)
+    frac, dmax = bad_pixels(imgs[6], imgs[4])
+    print(f"[max_leaf] render(bench) via K4 on the max_leaf=6 BVH vs the "
+          f"default (max_leaf=4) BVH, same seed: max abs diff {dmax:.3g}, "
+          f"bad-pixel share {frac:.6f} (bar {ENGINE_BAR} + {ENGINE_BAR}|ref|,"
+          f" under {ENGINE_BAD_PIXELS}); K4 {ms[6]:.4f} ms at m=6 vs "
+          f"{ms[4]:.4f} ms at m=4 on the checked rays, on {card}")
+    check(frac < ENGINE_BAD_PIXELS, f"max_leaf=6 frame: bad-pixel share "
+          f"{frac}")
+    print(f"[max_leaf] phase: {time.perf_counter() - t_start:.1f} s")
 
 
 def record_pair_queries(scene, cfg, pixel_ids):
@@ -1005,11 +1174,12 @@ def phase_bvh_presets(device, card: str) -> int:
 
 
 def config5_host_scene(cfg):
-    """big_mesh -> with_bvh on the host, timed."""
+    """big_mesh -> with_bvh on the host, timed, and its BVH checked
+    (check_config5_bvh)."""
     t0 = time.perf_counter()
-    scene = builder.build_scene(cfg.scene)
+    mesh = builder.build_scene(cfg.scene)
     t1 = time.perf_counter()
-    scene = with_bvh(scene)
+    scene = with_bvh(mesh)
     t2 = time.perf_counter()
     g = scene.geometry
     print(f"[main] big_mesh: {g.tri_v0.shape[0]} triangles, "
@@ -1017,7 +1187,34 @@ def config5_host_scene(cfg):
           f"entries, depth {int(g.bvh_pairs[0, 7].view(torch.int32))}; host "
           f"build s: big_mesh {t1 - t0:.2f}, native BVH and its tables "
           f"{t2 - t1:.2f}")
+    check_config5_bvh(mesh, scene)
     return scene
+
+
+def check_config5_bvh(mesh, scene) -> None:
+    """check_invariants on config 5's native BVH. The scene keeps only the
+    reordered triangles, so the tree is built again on the mesh
+    (build_bvh_native, timed), held equal to the scene's arrays (its
+    `order` gives the scene's triangles), then checked, timed."""
+    g = mesh.geometry
+    tris = [np.asarray(x) for x in (g.tri_v0, g.tri_e1, g.tri_e2)]
+    t0 = time.perf_counter()
+    bvh = native.build_bvh_native(*tris)
+    t1 = time.perf_counter()
+    s = scene.geometry
+    for name in ("lo", "hi", "first", "count", "skip"):
+        check(np.array_equal(getattr(bvh, name),
+                             np.asarray(getattr(s, f"bvh_{name}"))),
+              f"config5: the rebuilt BVH's {name} differs from the scene's")
+    check(np.array_equal(tris[0][bvh.order], np.asarray(s.tri_v0)),
+          "config5: the rebuilt order does not give the scene's triangles")
+    t2 = time.perf_counter()
+    check_invariants(bvh, len(tris[0]))
+    t3 = time.perf_counter()
+    print(f"[main] config5 check_invariants on the native BVH "
+          f"({len(bvh.lo)} nodes, {len(tris[0])} triangles, largest leaf "
+          f"{int(bvh.count.max())}): passed in {t3 - t2:.2f} s (the tree "
+          f"built again in {t1 - t0:.2f} s, equal to the scene's)")
 
 
 def config5_scene(host, cfg, device):
@@ -1087,9 +1284,20 @@ def phase_config5(scene, device, card: str) -> int:
 
 
 def stream_scene(host, cfg, device):
+    """prepare_accel -> the card, timed; the cluster table checked on the
+    host (check_cluster_invariants), timed."""
     t0 = time.perf_counter()
     scene = prepare_accel(host, cfg)
     t1 = time.perf_counter()
+    g = scene.geometry
+    check_cluster_invariants(ClusterSet(
+        lo=np.asarray(g.cl_lo), hi=np.asarray(g.cl_hi),
+        feat=np.asarray(g.cl_feat), tri_map=np.asarray(g.cl_map)),
+        int(g.tri_v0.shape[0]))
+    t2 = time.perf_counter()
+    print(f"[main] config5 stream scene: check_cluster_invariants on "
+          f"{g.cl_lo.shape[0]} clusters of {g.tri_v0.shape[0]} triangles "
+          f"passed in {t2 - t1:.2f} s")
     scene = scene.to(device)
     torch.cuda.synchronize()
     g = scene.geometry
@@ -1098,7 +1306,7 @@ def stream_scene(host, cfg, device):
           f"{g.cl_feat.numel() * 4 / 1e6:.1f} MB and split table "
           f"{nbytes(g.cl_feat_split) / 1e6:.1f} MB on the card; host build "
           f"s: cluster tables (split table included) {t1 - t0:.2f}, to card "
-          f"{time.perf_counter() - t1:.2f}")
+          f"{time.perf_counter() - t2:.2f}")
     return scene
 
 
@@ -1933,6 +2141,7 @@ def main() -> int:
         c3 = pt.PRESETS["config3"]
         phase_bvh_vs_plain("config3", bench_scene(c3, device), c3,
                            c3.n_pixels, device, k4)
+        phase_max_leaf(device, card)
         phase_goldens(device)
         k1_launches = phase_main_path(bench, device, card)
         phase_k1_frame(bench, device, card)

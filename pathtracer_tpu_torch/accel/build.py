@@ -146,3 +146,51 @@ def with_bvh(scene: Scene, max_leaf: int = 4, engine: str = "auto") -> Scene:
     tri_idx = inv[scene.lights.tri_idx.cpu().numpy()].astype(np.int32)
     return scene.replace(geometry=g2,
                          lights=scene.lights.replace(tri_idx=tri_idx))
+
+
+def _slice_bounds(start, stop, n):
+    """numpy's bounds of `a[start:stop]` on an axis of length n, elementwise
+    (negative ends count from the end; both clipped to 0..n)."""
+    start = np.where(start < 0, start + n, start).clip(0, n)
+    stop = np.where(stop < 0, stop + n, stop).clip(0, n)
+    return start, np.maximum(start, stop)
+
+
+def check_invariants(bvh: FlatBVH, n_tris: int, max_leaf: int = 4) -> None:
+    """Structural invariants of a skip-link BVH; raises AssertionError on a
+    violation: every triangle in exactly one leaf, skip links forward and
+    at most to the end sentinel, leaf counts <= max_leaf, the leaf ranges
+    covering the reordered triangle array, and each interior node's box
+    containing its children i + 1 and skip[i + 1] to 1e-6.
+
+    The reference's check (pathtracer_tpu/accel/build.py:check_invariants)
+    with the same verdict, vectorised: its per-node loops would take tens
+    of seconds on config 5's 1.3M-node tree.
+    """
+    n = len(bvh.lo)
+    assert len(bvh.order) == n_tris
+    assert np.array_equal(np.sort(bvh.order), np.arange(n_tris)), (
+        "every triangle in exactly one leaf")
+    assert (bvh.skip > np.arange(n)).all() and (bvh.skip <= n).all()
+    leaf = bvh.count > 0
+    assert (bvh.count[leaf] <= max_leaf).all()
+    # Each leaf covers order[first:first + count] (the sum in the arrays'
+    # own dtype, as the reference's); an interval count of the covers.
+    first = bvh.first[leaf]
+    start, stop = _slice_bounds(first.astype(np.int64),
+                                (first + bvh.count[leaf]).astype(np.int64),
+                                n_tris)
+    delta = np.zeros(n_tris + 1, np.int64)
+    np.add.at(delta, start, 1)
+    np.add.at(delta, stop, -1)
+    assert (np.cumsum(delta)[:n_tris] > 0).all(), (
+        "leaf ranges cover the reordered triangle array")
+    # Interior node i's children are i + 1 and skip[i + 1].
+    inner = np.nonzero(bvh.count == 0)[0]
+    left = inner + 1
+    assert (left < n).all()
+    right = bvh.skip[left]
+    assert (right < n).all()
+    for child in (left, right):
+        assert (bvh.lo[inner] <= bvh.lo[child] + 1e-6).all()
+        assert (bvh.hi[inner] >= bvh.hi[child] - 1e-6).all()

@@ -265,3 +265,26 @@ def with_clusters(scene: Scene, max_tris: int = CLUSTER_TRIS,
                                  g.tri_mat.cpu().numpy()),
     )
     return scene.replace(geometry=g2)
+
+
+def check_cluster_invariants(cs: ClusterSet, n_tris: int,
+                             max_tris: int = CLUSTER_TRIS) -> None:
+    """Structural invariants; raises AssertionError on a violation: the
+    table shapes, every triangle in exactly one cluster slot, 1..max_tris
+    triangles per cluster, and lo <= hi.
+
+    The reference's check (pathtracer_tpu/accel/clusters.py:
+    check_cluster_invariants) on the port's layout: `feat` is the f32
+    (FEAT_ROWS, C * CLUSTER_COLS) table, where the reference holds the
+    (FEAT_STACK, C * CLUSTER_COLS) bf16 [hi; hi; lo] stack; `tri_map` is
+    (C * CLUSTER_TRIS,) in both.
+    """
+    C = len(cs.lo)
+    assert cs.feat.shape == (FEAT_ROWS, C * CLUSTER_COLS)
+    assert cs.tri_map.shape == (C * CLUSTER_TRIS,)
+    real = cs.tri_map[cs.tri_map >= 0]
+    assert np.array_equal(np.sort(real), np.arange(n_tris)), (
+        "every triangle in exactly one cluster slot")
+    per_cluster = (cs.tri_map.reshape(C, CLUSTER_TRIS) >= 0).sum(1)
+    assert (per_cluster >= 1).all() and (per_cluster <= max_tris).all()
+    assert (cs.lo <= cs.hi).all()

@@ -14,6 +14,13 @@ Each cross and dot product is written out term by term in one fixed order
 on its own, and the divisions are IEEE, so the CUDA kernel, which rounds in
 the same order, returns the same bits.
 
+Every leaf's triangles are all tested: the walk runs as many leaf steps
+as the table's largest leaf holds, each masked by the leaf's own count.
+The reference tests at most ``max_leaf`` (4 by default) whatever the leaf
+holds, so a BVH built with larger leaves misses triangles there; here
+``max_leaf`` is kept for parity and may only restate the table's bound
+(``leaf_bound``).
+
 Return contract of closest_hit: engine/intersect.py:brute's (t, n_geom,
 mat), t == T_FAR on a miss.
 """
@@ -28,6 +35,18 @@ from ..ops.intersect_cluster import _safe_inverse
 
 # Rays per walk chunk (the reference's value).
 CHUNK = 8192
+
+
+def leaf_bound(largest: int, max_leaf: int | None) -> int:
+    """The triangles a walk tests per leaf at most: `largest`, the table's
+    largest leaf count. `max_leaf` (None, or the reference's argument) may
+    only restate that bound: a value below it raises ValueError instead of
+    leaving a leaf's last triangles untested."""
+    if max_leaf is not None and max_leaf < largest:
+        raise ValueError(f"max_leaf={max_leaf} is below the table's largest "
+                         f"leaf ({largest} triangles); the walks test every "
+                         "triangle of a leaf")
+    return largest
 
 
 def slab(lo, hi, o, inv_d):
@@ -71,7 +90,7 @@ def mt_test(v0, e1, e2, idx, o, d):
     return t, ok
 
 
-def _walk_chunk(lo, hi, first, count, skip, v0, e1, e2, o, d, max_leaf):
+def _walk_chunk(lo, hi, first, count, skip, v0, e1, e2, o, d, n_test):
     n_nodes = lo.shape[0]
     last_tri = v0.shape[0] - 1
     R = o.shape[0]
@@ -91,7 +110,7 @@ def _walk_chunk(lo, hi, first, count, skip, v0, e1, e2, o, d, max_leaf):
         cnt = count[c]
         is_leaf = cnt > 0
         first_c = first[c].to(torch.int64)
-        for k in range(max_leaf):
+        for k in range(n_test):
             idx = torch.clamp(first_c + k, max=last_tri)
             valid = hit_box & is_leaf & (k < cnt)
             t, ok = mt_test(v0, e1, e2, idx, o, d)
@@ -106,16 +125,19 @@ def _walk_chunk(lo, hi, first, count, skip, v0, e1, e2, o, d, max_leaf):
     return t_best, best.to(torch.int32), visits, tests
 
 
-def walk(lo, hi, first, count, skip, v0, e1, e2, o, d, max_leaf: int = 4,
-         chunk: int = CHUNK):
+def walk(lo, hi, first, count, skip, v0, e1, e2, o, d,
+         max_leaf: int | None = None, chunk: int = CHUNK):
     """Closest triangle of every ray by the skip-link walk.
 
     lo/hi (N, 3) f32 node boxes, first/count/skip (N,) node links (count 0
     = inner node), v0/e1/e2 (T, 3) f32 triangles in leaf order; o, d (R, 3).
-    Returns (t, tri, visits): (R,) f32 best t (T_FAR on a miss), (R,) i32
-    triangle index (-1 on a miss), (R,) i32 nodes visited.
+    Every triangle of a leaf is tested; `max_leaf` is checked by
+    leaf_bound. Returns (t, tri, visits, tests): (R,) f32 best t (T_FAR on
+    a miss), (R,) i32 triangle index (-1 on a miss), (R,) i32 nodes visited
+    and triangles tested.
     """
     R = o.shape[0]
+    n_test = leaf_bound(int(count.max()) if count.shape[0] else 0, max_leaf)
     if lo.shape[0] == 0 or R == 0:
         return (torch.full((R,), C.T_FAR, dtype=torch.float32,
                            device=o.device),
@@ -123,7 +145,7 @@ def walk(lo, hi, first, count, skip, v0, e1, e2, o, d, max_leaf: int = 4,
                 torch.zeros((R,), dtype=torch.int32, device=o.device),
                 torch.zeros((R,), dtype=torch.int32, device=o.device))
     parts = [_walk_chunk(lo, hi, first, count, skip, v0, e1, e2,
-                         o[s:s + chunk], d[s:s + chunk], max_leaf)
+                         o[s:s + chunk], d[s:s + chunk], n_test)
              for s in range(0, R, chunk)]
     return tuple(torch.cat(x) for x in zip(*parts))
 
@@ -139,7 +161,8 @@ def hit_from_index(geom, o, d, t_best, tri):
     return merge_spheres(geom, o, d, t_out, n_best, m_best)
 
 
-def closest_hit(geom, o, d, max_leaf: int = 4, chunk: int = CHUNK):
+def closest_hit(geom, o, d, max_leaf: int | None = None,
+                chunk: int = CHUNK):
     """Closest hit via the BVH walk (triangles) + brute spheres; the
     engine/intersect.py:brute contract."""
     t_best, tri, _, _ = walk(geom.bvh_lo, geom.bvh_hi, geom.bvh_first,

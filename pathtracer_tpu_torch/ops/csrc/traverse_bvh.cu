@@ -4,12 +4,14 @@
 // Replaces pathtracer_tpu/ops/traverse_pallas.py:_traverse_kernel (launched
 // by _traverse_impl). Both compute what accel/traverse.py computes: per ray
 // the closest Moller-Trumbore t over the triangles of the leaves it
-// reaches, testing min(count, max_leaf) triangles per leaf, and that
-// triangle's index (-1 and T_FAR on a miss). The TPU kernel walks the skip
-// links with one cursor shared by a 512-ray block and fetches each node and
-// triangle as a 128-aligned block reduced by a one-hot lane select, because
-// Mosaic cannot gather per lane. Here each thread walks its own ray over the
-// child-pair table (ops/traverse_bvh.py:pack_tables), near child first.
+// reaches, and that triangle's index (-1 and T_FAR on a miss). Every
+// triangle of a leaf is tested, as many as its word's count (at most 7);
+// the TPU kernel tests at most max_leaf (4) of them. The TPU kernel walks
+// the skip links with one cursor shared by a 512-ray block and fetches each
+// node and triangle as a 128-aligned block reduced by a one-hot lane
+// select, because Mosaic cannot gather per lane. Here each thread walks
+// its own ray over the child-pair table (ops/traverse_bvh.py:pack_tables),
+// near child first.
 // Products, sums and divisions round one at a time (__fmul_rn, __fadd_rn,
 // __fsub_rn, __fdiv_rn; no FMA contraction) in the plain versions' order,
 // so t equals the skip-link walk's wherever the same triangle wins, and the
@@ -138,8 +140,7 @@ bvh_hit_kernel(const float4* __restrict__ pairs,
                const float4* __restrict__ tris, const float* __restrict__ o,
                const float* __restrict__ d, float* __restrict__ t_out,
                int* __restrict__ tri_out, int* __restrict__ visits_out,
-               int* __restrict__ tests_out, int n_tris, int n_rays,
-               int max_leaf) {
+               int* __restrict__ tests_out, int n_tris, int n_rays) {
   __shared__ int block_visits, block_tests;
   const int tid = threadIdx.x;
   const long long ray = static_cast<long long>(blockIdx.x) * kBlock + tid;
@@ -190,7 +191,7 @@ bvh_hit_kernel(const float4* __restrict__ pairs,
       }
       if (done) break;
       const int first = word >> 3;
-      const int n_test = min(word & 7, max_leaf);
+      const int n_test = word & 7;
       for (int k = 0; k < n_test; ++k) {
         tri_test(r, tris, min(first + k, n_tris - 1), t_best, best);
       }
@@ -225,13 +226,13 @@ extern "C" int bvh_hit_launch(const void* pairs, const void* tris,
                               const void* o, const void* d, void* t_out,
                               void* tri_out, void* visits_out,
                               void* tests_out, int n_tris, int n_rays,
-                              int max_leaf, void* stream) {
+                              void* stream) {
   const int n_blocks = (n_rays + kBlock - 1) / kBlock;
   bvh_hit_kernel<<<n_blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(pairs), static_cast<const float4*>(tris),
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<float*>(t_out), static_cast<int*>(tri_out),
       static_cast<int*>(visits_out), static_cast<int*>(tests_out), n_tris,
-      n_rays, max_leaf);
+      n_rays);
   return static_cast<int>(cudaGetLastError());
 }

@@ -148,6 +148,21 @@ def block_cluster_intervals(cl_lo, cl_hi, o, d):
     return tnear_lo, tfar_hi
 
 
+def _block_cull(cl_lo, cl_hi, o, d):
+    """(hit, tnear_lo), each (B, C): the conservative interval slab test of
+    block_cluster_intervals (False only where no ray of block b can cross
+    cluster c), and the lower bound of the entry distance."""
+    tnear_lo, tfar_hi = block_cluster_intervals(cl_lo, cl_hi, o, d)
+    return tfar_hi >= torch.clamp(tnear_lo, min=C.T_MIN), tnear_lo
+
+
+def cull_mask(cl_lo, cl_hi, o, d):
+    """Conservative (n_blocks, C) i32 mask: 0 where no ray of RAY_BLOCK-ray
+    block b can hit cluster c. The reference's cull_mask, whose `block`
+    argument is here always RAY_BLOCK (512), the port's cull block."""
+    return _block_cull(cl_lo, cl_hi, o, d)[0].to(torch.int32)
+
+
 def _inflate(cl_lo, cl_hi):
     """Cluster boxes grown by 1e-6 of each axis' largest coordinate
     magnitude plus 1e-7, so that rounding never drops a hit on a face."""
@@ -213,8 +228,8 @@ def ray_super_mask(su_lo, su_hi, cl_super, o, d, t_max,
 def cull_candidates(cl_lo, cl_hi, o, d, t_max=None, extra_mask=None):
     """Per-block candidate cluster lists, near-first.
 
-    The conservative interval slab test of block_cluster_intervals, ANDed
-    with `extra_mask` ((B, C) bool), and with per-ray `t_max` also dropping
+    The conservative interval slab test of cull_mask, ANDed with
+    `extra_mask` ((B, C) bool), and with per-ray `t_max` also dropping
     clusters that start beyond the block's farthest bound. Candidates are
     sorted by the lower bound of their entry distance (stable sort; ties
     only change the visit order).
@@ -224,8 +239,7 @@ def cull_candidates(cl_lo, cl_hi, o, d, t_max=None, extra_mask=None):
       count: (B,) i32 number of valid candidates per block
       tnear: (B, C) f32 sorted entry-distance lower bounds (T_FAR padded)
     """
-    tnear_lo, tfar_hi = block_cluster_intervals(cl_lo, cl_hi, o, d)
-    hit = tfar_hi >= torch.clamp(tnear_lo, min=C.T_MIN)
+    hit, tnear_lo = _block_cull(cl_lo, cl_hi, o, d)
     if t_max is not None:
         block_tmax = t_max.reshape(-1, RAY_BLOCK).max(dim=1).values
         hit = hit & (tnear_lo < block_tmax[:, None])

@@ -32,6 +32,14 @@ Both builders emit depth-first preorder, so interior node i has its left
 child at i + 1 and its right child at skip[i + 1], and the pair table is
 derived from the skip-link arrays alone.
 
+A leaf's word alone says how many triangles it holds (at most 7), and all
+of them are tested, by the kernel and both plain walks. ``max_leaf``, the
+reference's bound on the triangles tested per leaf, is kept as an
+argument for parity: None (the default) or a value no smaller than the
+table's largest leaf; a smaller one raises ValueError
+(accel/traverse.py:leaf_bound) rather than skip triangles, as the
+reference does.
+
 On a CPU tensor ``bvh_hit`` runs ``bvh_hit_plain`` (the reference's
 skip-link walk, accel/traverse.py:walk); on a CUDA tensor it launches the
 kernel or raises. ``bvh_hit_ordered_plain`` is the kernel's walk in plain
@@ -52,6 +60,7 @@ from ..accel.traverse import (
     CHUNK,
     box_hit,
     hit_from_index,
+    leaf_bound,
     mt_test,
     slab,
     walk,
@@ -191,13 +200,22 @@ def _block_sums(per_ray):
     return v.reshape(-1, BVH_BLOCK).sum(dim=1).to(torch.int32)
 
 
-def bvh_hit_plain(nodes, tris, o, d, max_leaf: int = 4, chunk: int = CHUNK):
-    """The function's plain version: the reference's skip-link walk.
+def largest_leaf(pairs) -> int:
+    """The largest leaf count in a pair table: the low 3 bits of its child
+    words (an interior child's word is a multiple of 8)."""
+    words = pairs[:, [3, 11]].contiguous().view(torch.int32)
+    return int((words & 7).max())
+
+
+def bvh_hit_plain(nodes, tris, o, d, max_leaf: int | None = None,
+                  chunk: int = CHUNK):
+    """The function's plain version: the reference's skip-link walk, with
+    every triangle of a leaf tested.
 
     Args:
       nodes, tris: the packed tables (module docstring).
       o, d: (R, 3) f32 ray origins and directions.
-      max_leaf: triangles tested per leaf at most (the reference's 4).
+      max_leaf: None, or at least the table's largest leaf (leaf_bound).
       chunk: rays per walk chunk (changes only memory and time).
 
     Returns (t, tri, visits, tests): (R,) f32 closest t (T_FAR on a miss),
@@ -211,7 +229,7 @@ def bvh_hit_plain(nodes, tris, o, d, max_leaf: int = 4, chunk: int = CHUNK):
     return t, tri, _block_sums(visits), _block_sums(tests)
 
 
-def _ordered_chunk(pairs, tris, o, d, max_leaf, seen):
+def _ordered_chunk(pairs, tris, o, d, n_test, seen):
     R = o.shape[0]
     dev = o.device
     v0, e1, e2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
@@ -253,7 +271,7 @@ def _ordered_chunk(pairs, tris, o, d, max_leaf, seen):
         word = torch.where(hit_l | hit_r, near_w, word)
         # Leaf: its triangles, then a pop.
         first, cnt = word >> 3, word & 7
-        for k in range(max_leaf):
+        for k in range(n_test):
             idx = torch.clamp(first + k, max=last_tri)
             valid = leaf & (k < cnt)
             t, ok = mt_test(v0, e1, e2, idx, o, d)
@@ -281,7 +299,7 @@ def _ordered_chunk(pairs, tris, o, d, max_leaf, seen):
     return t_best, best.to(torch.int32), visits, tests
 
 
-def bvh_hit_ordered_plain(pairs, tris, o, d, max_leaf: int = 4,
+def bvh_hit_ordered_plain(pairs, tris, o, d, max_leaf: int | None = None,
                           chunk: int = CHUNK, seen=None):
     """The kernel's walk in plain PyTorch, for the tests and chip_smoke.py.
 
@@ -289,8 +307,8 @@ def bvh_hit_ordered_plain(pairs, tris, o, d, max_leaf: int = 4,
     and slab-tests both children, culled against the best t; if both hit,
     it descends into the one with the smaller tnear (the left one on a
     tie) and pushes the other with its tnear; if one hits, it descends
-    into it. A leaf word tests min(count, max_leaf) triangles in order,
-    keeping a strictly nearer t. After a leaf, or an entry with no child
+    into it. A leaf word tests its count of triangles in order, keeping a
+    strictly nearer t. After a leaf, or an entry with no child
     hit, it pops until an entry whose tnear is below the best t; an empty
     stack ends the walk.
 
@@ -307,12 +325,13 @@ def bvh_hit_ordered_plain(pairs, tris, o, d, max_leaf: int = 4,
     if depth > STACK_DEPTH:
         raise ValueError(f"the BVH is {depth} levels deep; the walk's stack "
                          f"holds {STACK_DEPTH}")
+    n_test = leaf_bound(largest_leaf(pairs), max_leaf)
     R = o.shape[0]
     if R == 0:
         empty = torch.zeros((0,), dtype=torch.int32, device=o.device)
         return o.new_zeros((0,)), empty, empty, empty
     parts = [_ordered_chunk(pairs, tris, o[s:s + chunk], d[s:s + chunk],
-                            max_leaf, seen)
+                            n_test, seen)
              for s in range(0, R, chunk)]
     t, tri, visits, tests = (torch.cat(x) for x in zip(*parts))
     return t, tri, _block_sums(visits), _block_sums(tests)
@@ -320,14 +339,16 @@ def bvh_hit_ordered_plain(pairs, tris, o, d, max_leaf: int = 4,
 
 def _kernel():
     fn = _build.load("traverse_bvh").bvh_hit_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def bvh_hit(nodes, pairs, tris, o, d, max_leaf: int = 4):
-    """Closest triangle of every ray by the BVH walk.
+def bvh_hit(nodes, pairs, tris, o, d, max_leaf: int | None = None):
+    """Closest triangle of every ray by the BVH walk, every triangle of a
+    leaf tested; `max_leaf` is None or at least the table's largest leaf
+    (leaf_bound; checking an explicit value reads the table on the host).
 
     CPU tensors run the plain version, the reference's skip-link walk
     (bvh_hit_plain, on `nodes`). CUDA tensors launch the near-first pair
@@ -340,7 +361,7 @@ def bvh_hit(nodes, pairs, tris, o, d, max_leaf: int = 4):
     return no_gradient(_bvh_hit, nodes, pairs, tris, o, d, max_leaf)
 
 
-def _bvh_hit(nodes, pairs, tris, o, d, max_leaf: int = 4):
+def _bvh_hit(nodes, pairs, tris, o, d, max_leaf: int | None = None):
     global LAUNCHES
     _check_inputs((("bvh_nodes", nodes, NODE_WORDS),
                    ("bvh_pairs", pairs, PAIR_WORDS),
@@ -350,8 +371,8 @@ def _bvh_hit(nodes, pairs, tris, o, d, max_leaf: int = 4):
         return bvh_hit_plain(nodes, tris, o, d, max_leaf)
     if dev.type != "cuda":
         raise ValueError(f"bvh_hit runs on cpu or cuda, not {dev}")
-    if not 1 <= max_leaf <= MAX_LEAF_COUNT:
-        raise ValueError(f"max_leaf must be in 1..7; got {max_leaf}")
+    if max_leaf is not None:
+        leaf_bound(largest_leaf(pairs), max_leaf)
     if pairs.data_ptr() % 64 or tris.data_ptr() % 16:
         raise ValueError("bvh_pairs must be 64-byte and bvh_tris 16-byte "
                          "aligned")
@@ -368,7 +389,7 @@ def _bvh_hit(nodes, pairs, tris, o, d, max_leaf: int = 4):
         err = launch(
             pairs.data_ptr(), tris.data_ptr(), o.data_ptr(), d.data_ptr(),
             t.data_ptr(), tri.data_ptr(), visits.data_ptr(),
-            tests.data_ptr(), tris.shape[0], R, max_leaf,
+            tests.data_ptr(), tris.shape[0], R,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -377,7 +398,7 @@ def _bvh_hit(nodes, pairs, tris, o, d, max_leaf: int = 4):
     return t, tri, visits, tests
 
 
-def closest_hit_bvh(geom, o, d, max_leaf: int = 4):
+def closest_hit_bvh(geom, o, d, max_leaf: int | None = None):
     """Closest hit through the BVH kernel (triangles) + brute spheres; the
     engine/intersect.py:brute contract (t == T_FAR on a miss)."""
     if (geom.bvh_nodes.shape[0] != geom.bvh_lo.shape[0]

@@ -257,6 +257,19 @@ def test_port_imports_no_jax():
         "cfg = pt.PRESETS['config1'].replace(width=8, height=8)\n"
         "img = tracer.render(pt.build_scene(cfg.scene), cfg)\n"
         "assert img.shape == (8, 8, 3) and img.mean() > 0\n"
+        "from pathtracer_tpu_torch.accel import build, clusters\n"
+        "from pathtracer_tpu_torch.ops import intersect_cluster as ic\n"
+        "g = pt.build_scene('cornell_mesh').geometry\n"
+        "tris = [x.numpy() for x in (g.tri_v0, g.tri_e1, g.tri_e2)]\n"
+        "build.check_invariants(build.build_bvh(*tris, max_leaf=6), "
+        "len(tris[0]), 6)\n"
+        "cs = clusters.build_clusters(*tris)\n"
+        "clusters.check_cluster_invariants(cs, len(tris[0]))\n"
+        "o = torch.full((512, 3), 0.5)\n"
+        "d = torch.nn.functional.normalize(torch.randn(512, 3), dim=1)\n"
+        "mask = ic.cull_mask(torch.from_numpy(cs.lo), "
+        "torch.from_numpy(cs.hi), o, d)\n"
+        "assert mask.shape == (1, len(cs.lo)) and bool(mask.any())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('pathtracer_tpu.') or m == 'pathtracer_tpu']\n"
         "assert not bad, bad\n"

@@ -22,6 +22,7 @@ from pathtracer_tpu.engine import intersect as ref_isect
 from pathtracer_tpu.ops import intersect_cluster as ref_ic
 from pathtracer_tpu.scene import builder as ref_builder
 from pathtracer_tpu_torch.engine import intersect as isect
+from pathtracer_tpu_torch.engine.camera import camera_rays, tiled_pixel_ids
 from pathtracer_tpu_torch.ops import intersect_cluster as ic
 from pathtracer_tpu_torch.scene.convert import scene_from_arrays
 
@@ -265,3 +266,46 @@ def test_cluster_hit_rejects_bad_inputs(mesh_pair):
     launches = ic.LAUNCHES
     ic.cluster_hit(*ok)
     assert ic.LAUNCHES == launches, "CPU tensors never launch the kernel"
+
+
+def _cull_rays(rays, n):
+    """n random rays inside the box, or n camera rays of a 64x64 frame in
+    tile order (each 512-ray block one screen tile: coherent blocks, which
+    the cull narrows)."""
+    if rays == "random":
+        return _random_rays(n, seed=5)
+    scene = _carry(ref_builder.cornell_mesh())
+    ids = tiled_pixel_ids(0, 64 * 64, 64)[:n]
+    jitter = torch.from_numpy(np.random.default_rng(3).random(
+        (n, 2), np.float32))
+    o, d = camera_rays(scene.camera, 64, 64, jitter, ids)
+    return o.numpy(), d.numpy()
+
+
+@pytest.mark.parametrize("n", [512, 4096])
+@pytest.mark.parametrize("rays", ["random", "camera"])
+def test_cull_mask_equal_and_keeps_actual_hits(mesh_pair, rays, n):
+    """cull_mask is bit-equal to the reference's (block 512), and keeps
+    every (block, cluster) where a ray of the block hits a triangle of the
+    cluster (tests/unit/test_cluster.py:test_cull_mask_keeps_actual_hits,
+    by brute force per cluster)."""
+    ref_g, g = mesh_pair
+    o, d = _cull_rays(rays, n)
+    want = np.asarray(ref_ic.cull_mask(
+        jnp.asarray(ref_g.cl_lo), jnp.asarray(ref_g.cl_hi), jnp.asarray(o),
+        jnp.asarray(d), block=ic.RAY_BLOCK))
+    got = ic.cull_mask(g.cl_lo, g.cl_hi, _t(o), _t(d))
+    assert got.dtype == torch.int32
+    assert got.shape == (n // ic.RAY_BLOCK, g.cl_lo.shape[0])
+    np.testing.assert_array_equal(got.numpy(), want)
+    # Hits per (ray, cluster): each slot's triangle, brute force.
+    tt = isect.intersect_tris_brute(_t(o), _t(d), g.tri_v0, g.tri_e1,
+                                    g.tri_e2)
+    slots = g.cl_map.long()
+    hit = (tt[:, slots.clamp(min=0)] < C.T_FAR) & (slots >= 0)
+    hit = hit.reshape(n, g.cl_lo.shape[0], -1).any(dim=2)
+    block_hit = hit.reshape(-1, ic.RAY_BLOCK, hit.shape[1]).any(dim=1)
+    assert bool(block_hit.any())
+    assert not bool((block_hit & (got == 0)).any())
+    if rays == "camera":
+        assert bool((got == 0).any()), "coherent blocks cull clusters"

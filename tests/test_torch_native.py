@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from pathtracer_tpu.accel import build as ref_build
+from pathtracer_tpu.accel import clusters as ref_clusters
 from pathtracer_tpu.accel import native as ref_native
 from pathtracer_tpu.accel.build import with_bvh as ref_with_bvh
 from pathtracer_tpu.scene import builder as ref_builder
-from pathtracer_tpu_torch.accel import clusters, native
+from pathtracer_tpu_torch.accel import build, clusters, native
 from pathtracer_tpu_torch.accel.build import with_bvh
 from pathtracer_tpu_torch.scene import builder
 
@@ -91,3 +93,44 @@ def test_with_bvh_native_equal(big_pair, ref_on_port_library, monkeypatch,
     _assert_equal(got, ref_with_bvh(ref, engine=engine))
     numpy_order = with_bvh(port, engine="numpy").geometry.tri_v0
     assert not torch.equal(numpy_order, got.geometry.tri_v0)
+
+
+def _tris(scene):
+    g = scene.geometry
+    return [g.tri_v0.numpy(), g.tri_e1.numpy(), g.tri_e2.numpy()]
+
+
+@pytest.mark.parametrize("max_leaf", [4, 6])
+def test_check_invariants_on_the_native_build(big_pair, ref_on_port_library,
+                                              max_leaf):
+    """Both packages' checks pass on the native SAH build of big_mesh, the
+    builder of config 5's 2M-triangle tree, and both reject it against a
+    leaf bound below its largest leaf."""
+    args = _tris(big_pair[0])
+    n_tris = len(args[0])
+    bvh = native.build_bvh_native(*args, max_leaf)
+    want = ref_native.build_bvh_native(*args, max_leaf)
+    for f in dataclasses.fields(bvh):
+        np.testing.assert_array_equal(getattr(bvh, f.name),
+                                      getattr(want, f.name))
+    build.check_invariants(bvh, n_tris, max_leaf)
+    ref_build.check_invariants(want, n_tris, max_leaf)
+    largest = int(bvh.count.max())
+    assert 1 < largest <= max_leaf
+    for check, table in ((build.check_invariants, bvh),
+                         (ref_build.check_invariants, want)):
+        with pytest.raises(AssertionError):
+            check(table, n_tris, largest - 1)
+
+
+def test_check_cluster_invariants_on_big_mesh(big_pair):
+    """Both packages' cluster checks pass on big_mesh's cluster tables (the
+    stream route's, with_clusters), each on its own layout."""
+    args = _tris(big_pair[0])
+    n_tris = len(args[0])
+    cs = clusters.build_clusters(*args)
+    ref_cs = ref_clusters.build_clusters(*args)
+    np.testing.assert_array_equal(cs.tri_map, ref_cs.tri_map)
+    assert len(cs.lo) >= -(-n_tris // clusters.CLUSTER_TRIS)
+    clusters.check_cluster_invariants(cs, n_tris)
+    ref_clusters.check_cluster_invariants(ref_cs, n_tris)

@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from pathtracer_tpu.accel import build as ref_build
 from pathtracer_tpu.accel import clusters as ref_clusters
 from pathtracer_tpu.accel.build import with_bvh as ref_with_bvh
 from pathtracer_tpu.scene import builder as ref_builder
 from pathtracer_tpu.scene import model as ref_model
-from pathtracer_tpu_torch.accel import clusters
+from pathtracer_tpu_torch.accel import build, clusters
 from pathtracer_tpu_torch.accel.auto import prepare_accel
 from pathtracer_tpu_torch.accel.build import with_bvh
 from pathtracer_tpu_torch.config import PRESETS, RenderConfig
@@ -190,3 +191,192 @@ def test_constants_are_the_reference_values():
 
     names = [n for n in dir(ref_c) if n.isupper()]
     assert names and all(getattr(c, n) == getattr(ref_c, n) for n in names)
+
+
+# ---- the host-table invariant checks, held to the reference's verdicts ---
+
+@pytest.fixture(scope="module")
+def mesh_tris():
+    """cornell_mesh's triangles (v0, e1, e2) as numpy arrays."""
+    g = builder.cornell_mesh().geometry
+    return tuple(x.numpy() for x in (g.tri_v0, g.tri_e1, g.tri_e2))
+
+
+@pytest.fixture(scope="module")
+def mesh_bvh(mesh_tris):
+    bvh = build.build_bvh(*mesh_tris)
+    want = ref_build.build_bvh(*mesh_tris)
+    for f in dataclasses.fields(bvh):
+        np.testing.assert_array_equal(getattr(bvh, f.name),
+                                      getattr(want, f.name))
+    return bvh
+
+
+def _bvh_fields(bvh) -> dict:
+    return {f.name: getattr(bvh, f.name).copy()
+            for f in dataclasses.fields(bvh)}
+
+
+def _bvh_verdicts(fields, n_tris, max_leaf=4):
+    """(reference passes, port passes) on the same arrays. The reference's
+    loop reads skip[i + 1] before it asserts i + 1 < n, so an IndexError
+    is its rejection too."""
+    verdicts = []
+    for cls, check, rejects in (
+            (ref_build.FlatBVH, ref_build.check_invariants,
+             (AssertionError, IndexError)),
+            (build.FlatBVH, build.check_invariants, AssertionError)):
+        try:
+            check(cls(**{k: v.copy() for k, v in fields.items()}), n_tris,
+                  max_leaf)
+            verdicts.append(True)
+        except rejects:
+            verdicts.append(False)
+    return tuple(verdicts)
+
+
+def test_check_invariants_passes_on_the_numpy_build(mesh_tris, mesh_bvh):
+    n_tris = len(mesh_tris[0])
+    assert _bvh_verdicts(_bvh_fields(mesh_bvh), n_tris) == (True, True)
+    bvh6 = build.build_bvh(*mesh_tris, max_leaf=6)
+    assert _bvh_verdicts(_bvh_fields(bvh6), n_tris, 6) == (True, True)
+    # A leaf of up to 6 is over the default bound of 4.
+    assert _bvh_verdicts(_bvh_fields(bvh6), n_tris) == (False, False)
+
+
+def _first_leaf(f, at_least=1):
+    return int(np.nonzero(f["count"] >= at_least)[0][0])
+
+
+def _dup_triangle(f):
+    f["order"][1] = f["order"][0]
+
+
+def _backward_skip(f):
+    f["skip"][10] = 3
+
+
+def _leaf_over_max_leaf(f):
+    f["count"][_first_leaf(f)] = 5
+
+
+def _coverage_gap(f):
+    f["count"][_first_leaf(f, 2)] -= 1
+
+
+def _child_outside_parent(f):
+    inner = int(np.nonzero(f["count"] == 0)[0][3])
+    f["lo"][f["skip"][inner + 1]] = f["lo"][inner] - 0.01
+
+
+BVH_TAMPERS = {
+    "duplicated_triangle": _dup_triangle,
+    "backward_skip": _backward_skip,
+    "leaf_over_max_leaf": _leaf_over_max_leaf,
+    "gap_in_leaf_coverage": _coverage_gap,
+    "child_box_outside_parent": _child_outside_parent,
+}
+
+
+@pytest.mark.parametrize("tamper", list(BVH_TAMPERS))
+def test_check_invariants_rejects_a_tampered_bvh(mesh_tris, mesh_bvh,
+                                                 tamper):
+    fields = _bvh_fields(mesh_bvh)
+    BVH_TAMPERS[tamper](fields)
+    with pytest.raises(AssertionError):
+        ref_build.check_invariants(ref_build.FlatBVH(**fields),
+                                   len(mesh_tris[0]))
+    with pytest.raises(AssertionError):
+        build.check_invariants(build.FlatBVH(**fields), len(mesh_tris[0]))
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_check_invariants_verdict_equals_the_reference(mesh_tris, mesh_bvh,
+                                                       seed):
+    """Random single-entry edits (a skip, count, first, order entry or a
+    box corner moved by a small or a large step): the port's vectorised
+    check gives the reference's verdict on each."""
+    rng = np.random.default_rng(seed)
+    n_tris = len(mesh_tris[0])
+    for _ in range(8):
+        fields = _bvh_fields(mesh_bvh)
+        name = str(rng.choice(["skip", "count", "first", "order", "lo",
+                               "hi"]))
+        arr = fields[name]
+        i = int(rng.integers(len(arr)))
+        if arr.ndim == 2:
+            arr[i, int(rng.integers(3))] += np.float32(
+                rng.choice([-1e-7, 1e-7, -0.05, 0.05]))
+        else:
+            step = int(rng.choice([-2, -1, 1, 2, len(arr)]))
+            arr[i] = max(arr[i] + step, -1)
+        ref_ok, port_ok = _bvh_verdicts(fields, n_tris)
+        assert ref_ok == port_ok, (name, i, ref_ok)
+
+
+@pytest.fixture(scope="module")
+def mesh_clusters(mesh_tris):
+    """Both packages' cluster tables of cornell_mesh (64 clusters)."""
+    return (clusters.build_clusters(*mesh_tris),
+            ref_clusters.build_clusters(*mesh_tris))
+
+
+def test_check_cluster_invariants_passes(mesh_tris, mesh_clusters):
+    port, ref = mesh_clusters
+    n_tris = len(mesh_tris[0])
+    assert port.feat.shape == (clusters.FEAT_ROWS, port.lo.shape[0] * 512)
+    clusters.check_cluster_invariants(port, n_tris)
+    ref_clusters.check_cluster_invariants(ref, n_tris)
+
+
+def _dup_slot(cs):
+    cs.tri_map[1] = cs.tri_map[0]
+
+
+def _empty_cluster(cs):
+    """A 65th cluster with no triangle (every other invariant holds)."""
+    cs.lo = np.concatenate([cs.lo, cs.lo[:1]])
+    cs.hi = np.concatenate([cs.hi, cs.hi[:1]])
+    cs.feat = np.concatenate([cs.feat, np.zeros_like(cs.feat[:, :512])], 1)
+    cs.tri_map = np.concatenate([cs.tri_map,
+                                 np.full(128, -1, cs.tri_map.dtype)])
+
+
+def _lo_above_hi(cs):
+    cs.lo[5, 1] = cs.hi[5, 1] + 0.01
+
+
+def _wrong_feat_shape(cs):
+    cs.feat = cs.feat[:, :-1]
+
+
+CLUSTER_TAMPERS = {
+    "duplicated_slot": _dup_slot,
+    "empty_cluster": _empty_cluster,
+    "lo_above_hi": _lo_above_hi,
+    "wrong_feat_shape": _wrong_feat_shape,
+}
+
+
+@pytest.mark.parametrize("tamper", list(CLUSTER_TAMPERS))
+def test_check_cluster_invariants_rejects_a_tampered_table(
+        mesh_tris, mesh_clusters, tamper):
+    n_tris = len(mesh_tris[0])
+    for module, cs in zip((clusters, ref_clusters), mesh_clusters):
+        cs = dataclasses.replace(cs, **{
+            f.name: getattr(cs, f.name).copy()
+            for f in dataclasses.fields(cs)})
+        CLUSTER_TAMPERS[tamper](cs)
+        with pytest.raises(AssertionError):
+            module.check_cluster_invariants(cs, n_tris)
+
+
+def test_check_cluster_invariants_max_tris(mesh_tris, mesh_clusters):
+    """Clusters of up to 128 break a bound of 64 in both packages, and
+    pass the bound they were built with."""
+    n_tris = len(mesh_tris[0])
+    for module, cs in zip((clusters, ref_clusters), mesh_clusters):
+        with pytest.raises(AssertionError):
+            module.check_cluster_invariants(cs, n_tris, max_tris=64)
+        small = module.build_clusters(*mesh_tris, max_tris=64)
+        module.check_cluster_invariants(small, n_tris, max_tris=64)

@@ -462,3 +462,135 @@ def test_ordered_walk_against_skip_links(mesh_pair, big_native, which):
     assert int(skip[2].sum()) >= boxes >= visits
     assert seen[0][0] and int(seen[0].sum()) <= visits
     assert 0 < int(seen[1].sum()) <= tests
+
+
+# ---- every leaf's full count: BVHs built with max_leaf > 4 -------------
+
+# The intersection bar (tests/unit/test_grid.py): t, normal and material.
+HIT_RTOL, HIT_ATOL = 4e-3, 2e-4
+LEAF_SIZES = (4, 6, 7)
+
+
+def _ordered_hit(g, o, d, max_leaf=None):
+    t, tri, _, _ = tb.bvh_hit_ordered_plain(g.bvh_pairs, g.bvh_tris, o, d,
+                                            max_leaf)
+    return traverse.hit_from_index(g, o, d, t, tri)
+
+
+LEAF_WALKS = {
+    "closest_hit_bvh": tb.closest_hit_bvh,
+    "bvh_hit_ordered_plain": _ordered_hit,
+    "traverse.closest_hit": traverse.closest_hit,
+}
+
+
+@pytest.fixture(scope="module")
+def leaf_scenes():
+    """cornell_mesh (the bench scene) with numpy BVHs of leaves up to m."""
+    base = builder.cornell_mesh()
+    return {m: with_bvh(base, max_leaf=m, engine="numpy")
+            for m in LEAF_SIZES}
+
+
+def _rays_off(got, want):
+    """Rays whose t, normal or material is off the intersection bar."""
+    (t_g, n_g, m_g), (t_w, n_w, m_w) = got, want
+    ok = (torch.isclose(t_g, t_w, rtol=HIT_RTOL, atol=HIT_ATOL)
+          & torch.isclose(n_g, n_w, rtol=HIT_RTOL, atol=HIT_ATOL).all(1)
+          & (m_g == m_w))
+    return int((~ok).sum())
+
+
+@pytest.mark.parametrize("walk", list(LEAF_WALKS))
+@pytest.mark.parametrize("m", LEAF_SIZES)
+def test_walks_test_every_leaf_triangle(leaf_scenes, m, walk):
+    """2,048 random rays inside the box through each walk of a max_leaf=m
+    BVH: no ray off brute force at the intersection bar. Before the walks
+    tested each leaf's full count, m = 6 and 7 missed hits in leaves of
+    5-6 triangles."""
+    g = leaf_scenes[m].geometry
+    assert int(g.bvh_count.max()) == (3 if m == 4 else 6)
+    o, d = (_t(x) for x in _random_rays(2048, seed=21))
+    want = isect.brute(g, o, d)
+    got = LEAF_WALKS[walk](g, o, d)
+    assert _rays_off(got, want) == 0, (
+        f"{_rays_off(got, want)} of 2048 rays off brute force")
+    assert (got[0] < C.T_FAR).float().mean() > 0.5
+
+
+@pytest.fixture(scope="module")
+def big_native_m6():
+    """big_mesh at ~20k triangles, native SAH builder, leaves up to 6."""
+    return with_bvh(builder.big_mesh(n_target=20_000), max_leaf=6,
+                    engine="native")
+
+
+@pytest.mark.parametrize("walk", list(LEAF_WALKS))
+def test_walks_test_every_leaf_triangle_native(big_native_m6, walk):
+    g = big_native_m6.geometry
+    assert int(g.bvh_count.max()) > 4
+    o, d = _random_rays(2048, seed=22)
+    lo, hi = g.bvh_lo[0].numpy(), g.bvh_hi[0].numpy()
+    o = (lo + (hi - lo) * (o - 0.05) / 0.9).astype(np.float32)
+    o, d = _t(o), _t(d)
+    want = isect.brute(g, o, d)
+    got = LEAF_WALKS[walk](g, o, d)
+    assert _rays_off(got, want) == 0, (
+        f"{_rays_off(got, want)} of 2048 rays off brute force")
+    assert (got[0] < C.T_FAR).float().mean() > 0.5
+
+
+def _walk_call(g, o, d, max_leaf):
+    return traverse.walk(g.bvh_lo, g.bvh_hi, g.bvh_first, g.bvh_count,
+                         g.bvh_skip, g.tri_v0, g.tri_e1, g.tri_e2, o, d,
+                         max_leaf)
+
+
+MAX_LEAF_CALLS = {
+    **LEAF_WALKS,
+    "bvh_hit": lambda g, o, d, m: tb.bvh_hit(g.bvh_nodes, g.bvh_pairs,
+                                             g.bvh_tris, o, d, m),
+    "bvh_hit_plain": lambda g, o, d, m: tb.bvh_hit_plain(
+        g.bvh_nodes, g.bvh_tris, o, d, m),
+    "traverse.walk": _walk_call,
+}
+
+
+@pytest.mark.parametrize("call", list(MAX_LEAF_CALLS))
+def test_max_leaf_below_the_largest_leaf_raises(leaf_scenes, call):
+    """max_leaf may restate the table's bound (the same result as None)
+    but never truncate a leaf: below the largest leaf it raises."""
+    g = leaf_scenes[6].geometry
+    o, d = (_t(x) for x in _random_rays(300, seed=23))
+    fn = MAX_LEAF_CALLS[call]
+    with pytest.raises(ValueError, match="largest leaf"):
+        fn(g, o, d, 4)
+    with pytest.raises(ValueError, match="largest leaf"):
+        fn(g, o, d, 5)
+    for a, b in zip(fn(g, o, d, 6), fn(g, o, d, None)):
+        assert torch.equal(a, b)
+    for a, b in zip(fn(g, o, d, 7), fn(g, o, d, None)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", LEAF_SIZES)
+def test_largest_leaf_read_from_both_tables(leaf_scenes, m):
+    """The pair table's leaf words and the skip-link counts give the same
+    largest leaf, the bound every walk runs to."""
+    g = leaf_scenes[m].geometry
+    assert tb.largest_leaf(g.bvh_pairs) == int(g.bvh_count.max())
+    _, _, _, count, _, _, _, _ = tb.unpack_tables(g.bvh_nodes, g.bvh_tris)
+    assert int(count.max()) == int(g.bvh_count.max())
+
+
+def test_engine_on_a_max_leaf_6_bvh(leaf_scenes):
+    """pt.render through the BVH route (backend="jnp") on the max_leaf=6
+    BVH equals the default BVH's frame at the engine bar (multi-bounce:
+    atol 1e-3 / rtol 2e-3)."""
+    cfg = RenderConfig(width=24, height=24, spp=1, max_depth=3, rr_start=2,
+                       scene="cornell_mesh", use_bvh=True, backend="jnp")
+    default = render(with_bvh(builder.cornell_mesh()), cfg,
+                     device="cpu").numpy()
+    img = render(leaf_scenes[6], cfg, device="cpu").numpy()
+    np.testing.assert_allclose(img, default, atol=1e-3, rtol=2e-3)
+    assert img.mean() > 0
