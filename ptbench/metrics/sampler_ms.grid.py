@@ -1,0 +1,5 @@
+"""`sampler_ms` in the grid route's cells, where it moves `rays_per_s.grid`."""
+
+from ptbench import harness
+
+read = harness.load_module("metrics", "sampler_ms").read
