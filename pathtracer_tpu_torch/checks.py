@@ -42,12 +42,21 @@ With --full:
   [10] the furnace (one diffuse sphere in a background of 1) at depth 2,
       no roulette, albedo 1.0 and 0.5: every pixel equals the albedo or 1
       within 1e-5, and the oracle's image within 1e-5.
+  [11] every host read inside closest_hit_grid is marked: one config-5
+      frame (the 2M-triangle scene, built here) under the profiler and
+      torch.cuda's sync debug mode; the synchronising calls raised inside
+      closest_hit_grid equal its `pt.read` spans (utils/profiling.py:
+      host_read), and there is at least one. The line also gives each
+      read's source line and the synchronising calls elsewhere in the
+      frame.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -287,6 +296,80 @@ def check_grad(ctx) -> tuple:
                 + ", ".join(parts))
 
 
+def read_marks(scene, cfg) -> dict:
+    """One frame of `scene` (warmed by one unmarked frame) under a CPU
+    profiler and, on the card, torch.cuda's sync debug mode "warn":
+    {"syncs": the synchronising calls raised inside closest_hit_grid,
+    "reads": the pt.read spans inside pt.grid, "elsewhere": the
+    synchronising calls elsewhere in the frame, "where": each call's
+    source file:line with its count, "named": each read's name with its
+    count}."""
+    g = scene.geometry
+    ids = torch.arange(cfg.n_pixels, dtype=torch.int64, device=g.tri_v0.device)
+    args = (g, scene.materials, scene.camera, scene.lights, cfg, ids, 0)
+    inner, in_grid = ig.closest_hit_grid, []
+
+    def counted(*a, **k):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            try:
+                return inner(*a, **k)
+            finally:
+                in_grid.extend(got)
+
+    on_card = ids.is_cuda
+    with torch.inference_mode():
+        wavefront.trace_sample(*args)
+        if on_card:
+            torch.cuda.synchronize()
+        ig.closest_hit_grid = counted
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        # Turning the mode on warns once itself, and the profiler's start
+        # and stop may synchronise: neither is recorded.
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.profiler.profile(activities=acts) as prof, \
+                    warnings.catch_warnings(record=True) as outside:
+                warnings.simplefilter("always")
+                wavefront.trace_sample(*args)
+        finally:
+            ig.closest_hit_grid = inner
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+
+    def syncs(found):
+        return [w for w in found if "synchroniz" in str(w.message)]
+
+    grids = [e.time_range for e in prof.events() if e.name == "pt.grid"]
+    reads = [e.name[len("pt.read["):-1] for e in prof.events()
+             if e.name.startswith("pt.read[")
+             and any(r.start <= e.time_range.start <= r.end
+                     for r in grids)]
+    where, named = {}, {}
+    for w in syncs(in_grid) + syncs(outside):
+        key = f"{os.path.basename(w.filename)}:{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    for r in reads:
+        named[r] = named.get(r, 0) + 1
+    return {"syncs": len(syncs(in_grid)), "reads": len(reads),
+            "elsewhere": len(syncs(outside)), "where": where,
+            "named": named}
+
+
+def check_reads_marked(ctx) -> tuple:
+    cfg = PRESETS["config5"]
+    scene = prepare_accel(with_bvh(builder.build_scene(cfg.scene)),
+                          cfg).to(ctx["device"])
+    m = read_marks(scene, cfg)
+    ok = m["syncs"] == m["reads"] > 0
+    return ok, (f"config5 {cfg.width}x{cfg.height} frame: "
+                f"{m['syncs']} synchronising calls inside closest_hit_grid, "
+                f"{m['reads']} pt.read spans inside pt.grid {m['named']}; "
+                f"{m['elsewhere']} synchronising calls elsewhere in the "
+                f"frame; by source line {m['where']}")
+
+
 def check_furnace(ctx) -> tuple:
     cfg = RenderConfig(width=32, height=32, spp=1, max_depth=2, rr_start=8,
                        scene="furnace", use_bvh=False)
@@ -321,6 +404,7 @@ CHECKS = (
     ("8", check_sphlight_vs_oracle, {"K1"}, True),
     ("9", check_grad, {"K1"}, True),
     ("10", check_furnace, set(), True),
+    ("11", check_reads_marked, {"K2"}, True),
 )
 
 
@@ -347,7 +431,7 @@ def main(argv=None) -> int:
         description="The kernels and the engine against brute force, the "
                     "BVH walk and the oracle, on the card.")
     ap.add_argument("--full", action="store_true",
-                    help="also checks [3]-[10]")
+                    help="also checks [3]-[11]")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("checks run on the card: no CUDA device")

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import RenderConfig
 from ..engine.wavefront import trace_sample
 from ..scene.model import Materials, Scene
+from ..utils.profiling import span
 
 
 def render_image(scene: Scene, cfg: RenderConfig, materials: Materials,
@@ -67,8 +68,9 @@ def value_and_grad(f, materials: Materials):
         emission=materials.emission.detach().clone().requires_grad_(True),
     )
     value = f(leaves)
-    grads = torch.autograd.grad(value, (leaves.albedo, leaves.emission),
-                                allow_unused=True)
+    with span("backward"):
+        grads = torch.autograd.grad(value, (leaves.albedo, leaves.emission),
+                                    allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, (leaves.albedo, leaves.emission))]
     return value.detach(), Materials(albedo=grads[0], emission=grads[1])

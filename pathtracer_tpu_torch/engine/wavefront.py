@@ -33,6 +33,7 @@ from ..config import RenderConfig
 from ..sampling import rng as rng_mod
 from ..scene.model import Scene
 from . import intersect as isect
+from ..utils.profiling import span
 from .camera import camera_rays
 from .shading import (
     cosine_hemisphere,
@@ -202,6 +203,13 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
     path segments + candidate shadow rays) as a 0-d int64 tensor — the
     numerator of the rays/s metric, excluding dead lanes.
     """
+    with span("frame", spp_idx):
+        return _trace_sample(geometry, materials, camera, lights, cfg,
+                             pixel_ids, spp_idx, with_stats)
+
+
+def _trace_sample(geometry, materials, camera, lights, cfg, pixel_ids,
+                  spp_idx, with_stats):
     intersect = _intersector(geometry, cfg)
     dev = pixel_ids.device
     pixel_ids = pixel_ids.to(torch.int64)
@@ -235,169 +243,175 @@ def trace_sample(geometry, materials, camera, lights, cfg: RenderConfig,
             scene_hi = geometry.tri_v0.max(dim=0).values
 
     for bounce in range(cfg.max_depth):
-        n_rays = n_rays + alive.sum()
-        U = rng_mod.bounce_uniforms(cfg.seed, spp_idx, bounce, pixel_ids)
-        # Dead lanes become zero-work point rays; their results are never
-        # used (every radiance term is masked by `alive`).
-        o_q = torch.where(alive[:, None], o, 0.0)
-        d_q = torch.where(alive[:, None], d, canon)
-        t_cap = torch.where(alive, C.T_FAR, C.T_MIN)
-        # Late bounces are mostly dead lanes (misses, roulette): there the
-        # grid route skips its full-width first phase (the reference's
-        # choice of bounce >= 3).
-        sparse = bounce >= 3
-        t, n_geom, mat = intersect(geometry, o_q.detach(), d_q.detach(),
-                                   t_max=t_cap, sparse_hint=sparse)
-        # Detach geometry: grads flow only through the shading chain.
-        t = t.detach()
-        n_geom = n_geom.detach()
-        hit = t < C.T_FAR
-        mrow = take_rows(mat_rows, mat)
-        alb_m = mrow[:, 0:3]
-        emis_m = mrow[:, 3:6]
+        with span("bounce", bounce):
+            n_rays = n_rays + alive.sum()
+            U = rng_mod.bounce_uniforms(cfg.seed, spp_idx, bounce, pixel_ids)
+            # Dead lanes become zero-work point rays; their results are never
+            # used (every radiance term is masked by `alive`).
+            o_q = torch.where(alive[:, None], o, 0.0)
+            d_q = torch.where(alive[:, None], d, canon)
+            t_cap = torch.where(alive, C.T_FAR, C.T_MIN)
+            # Late bounces are mostly dead lanes (misses, roulette): there the
+            # grid route skips its full-width first phase (the reference's
+            # choice of bounce >= 3).
+            sparse = bounce >= 3
+            with span("query", "hit"):
+                t, n_geom, mat = intersect(geometry, o_q.detach(),
+                                           d_q.detach(), t_max=t_cap,
+                                           sparse_hint=sparse)
+            # Detach geometry: grads flow only through the shading chain.
+            t = t.detach()
+            n_geom = n_geom.detach()
+            hit = t < C.T_FAR
+            mrow = take_rows(mat_rows, mat)
+            alb_m = mrow[:, 0:3]
+            emis_m = mrow[:, 3:6]
 
-        miss = alive & ~hit
-        radiance = radiance + torch.where(
-            miss[:, None], throughput * bg[None, :], 0.0)
-
-        cos_in = -dot3(n_geom, d)
-        if cfg.mis and n_lights > 0:
-            # Every front-face emissive hit counts; diffuse-reached ones
-            # carry the power-heuristic weight vs the NEE pdf of the same
-            # light point. Miss lanes' t (T_FAR) would overflow when
-            # squared; their weight is never used.
-            t_eff = torch.where(hit, t, 1.0)
-            p_nee = (t_eff * t_eff) / torch.clamp(cos_in * total_area,
-                                                  min=1e-12)
-            w_b = (prev_pdf * prev_pdf) / torch.clamp(
-                prev_pdf * prev_pdf + p_nee * p_nee, min=1e-20)
-            w_emit = torch.where(spec_chain, 1.0, w_b).detach()
-            prim = alive & hit & (cos_in > 0.0)
+            miss = alive & ~hit
             radiance = radiance + torch.where(
-                prim[:, None], throughput * emis_m * w_emit[:, None], 0.0)
-        else:
-            prim = alive & hit & (cos_in > 0.0) & spec_chain
-            radiance = radiance + torch.where(
-                prim[:, None], throughput * emis_m, 0.0)
+                miss[:, None], throughput * bg[None, :], 0.0)
 
-        alive = alive & hit
-        p = o + t[:, None] * d
-        n_shade = n_geom * torch.where(cos_in > 0.0, 1.0, -1.0)[:, None]
-        mt = mrow[:, 6].to(torch.int32)
-        is_diff = mt == C.MAT_DIFF
-        is_refr = mt == C.MAT_REFR
+            cos_in = -dot3(n_geom, d)
+            if cfg.mis and n_lights > 0:
+                # Every front-face emissive hit counts; diffuse-reached ones
+                # carry the power-heuristic weight vs the NEE pdf of the same
+                # light point. Miss lanes' t (T_FAR) would overflow when
+                # squared; their weight is never used.
+                t_eff = torch.where(hit, t, 1.0)
+                p_nee = (t_eff * t_eff) / torch.clamp(cos_in * total_area,
+                                                      min=1e-12)
+                w_b = (prev_pdf * prev_pdf) / torch.clamp(
+                    prev_pdf * prev_pdf + p_nee * p_nee, min=1e-20)
+                w_emit = torch.where(spec_chain, 1.0, w_b).detach()
+                prim = alive & hit & (cos_in > 0.0)
+                radiance = radiance + torch.where(
+                    prim[:, None], throughput * emis_m * w_emit[:, None], 0.0)
+            else:
+                prim = alive & hit & (cos_in > 0.0) & spec_chain
+                radiance = radiance + torch.where(
+                    prim[:, None], throughput * emis_m, 0.0)
 
-        # --- Next-event estimation (one shadow ray per path vertex) ----
-        if n_lights > 0:
-            x_l, n_l, _, emis_l = sample_light(
-                lights, geometry, U[:, rng_mod.LIGHT_SEL],
-                U[:, rng_mod.LIGHT_U1], U[:, rng_mod.LIGHT_U2], emission,
-            )
-            o_sh = p + n_shade * C.RAY_OFFSET
-            dvec = x_l - o_sh
-            dist = norm3(dvec)
-            wi = dvec / torch.clamp(dist, min=1e-20)[:, None]
-            cos_s = dot3(n_shade, wi)
-            cos_l = -dot3(n_l, wi)
-            cand = alive & is_diff & (cos_s > 0.0) & (cos_l > 0.0)
-            n_rays = n_rays + cand.sum()
-            # The shadow query carries its distance bound; non-candidate
-            # lanes become zero-work point rays (their visibility is
-            # never read).
-            o_shq = torch.where(cand[:, None], o_sh, 0.0)
-            wi_q = torch.where(cand[:, None], wi, canon)
-            t_sh_cap = torch.where(cand, dist, C.T_MIN)
-            t_sh, _, _ = intersect(geometry, o_shq.detach(), wi_q.detach(),
-                                   t_max=t_sh_cap.detach(),
-                                   sparse_hint=sparse)
-            vis = t_sh >= dist * (1.0 - C.SHADOW_REL_EPS)
-            geo_term = (cos_s * cos_l * total_area
-                        / torch.clamp(dist * dist, min=1e-12))
-            if cfg.mis and bounce + 1 < cfg.max_depth:
-                # Power heuristic vs the cosine-BSDF pdf; the last vertex
-                # keeps w=1 (BSDF counterpart truncated by max_depth).
-                p_l = (dist * dist) / torch.clamp(cos_l * total_area,
-                                                  min=1e-12)
-                p_b = cos_s / math.pi
-                w_nee = (p_l * p_l) / torch.clamp(p_l * p_l + p_b * p_b,
-                                                  min=1e-20)
-                geo_term = geo_term * w_nee
-            # Only candidate lanes read contrib. Elsewhere dist² may
-            # overflow, making w_nee inf/inf = NaN, and the zero cotangent
-            # the masking where sends back times that NaN is NaN: zero the
-            # term there (the forward result is unchanged).
-            geo_term = torch.where(cand, geo_term, 0.0)
-            contrib = throughput * (alb_m / math.pi) * emis_l \
-                * geo_term.detach()[:, None]
-            radiance = radiance + torch.where(
-                (cand & vis)[:, None], contrib, 0.0)
+            alive = alive & hit
+            p = o + t[:, None] * d
+            n_shade = n_geom * torch.where(cos_in > 0.0, 1.0, -1.0)[:, None]
+            mt = mrow[:, 6].to(torch.int32)
+            is_diff = mt == C.MAT_DIFF
+            is_refr = mt == C.MAT_REFR
 
-        if bounce + 1 >= cfg.max_depth:
-            break
+            # --- Next-event estimation (one shadow ray per path vertex) ----
+            if n_lights > 0:
+                x_l, n_l, _, emis_l = sample_light(
+                    lights, geometry, U[:, rng_mod.LIGHT_SEL],
+                    U[:, rng_mod.LIGHT_U1], U[:, rng_mod.LIGHT_U2], emission,
+                )
+                o_sh = p + n_shade * C.RAY_OFFSET
+                dvec = x_l - o_sh
+                dist = norm3(dvec)
+                wi = dvec / torch.clamp(dist, min=1e-20)[:, None]
+                cos_s = dot3(n_shade, wi)
+                cos_l = -dot3(n_l, wi)
+                cand = alive & is_diff & (cos_s > 0.0) & (cos_l > 0.0)
+                n_rays = n_rays + cand.sum()
+                # The shadow query carries its distance bound; non-candidate
+                # lanes become zero-work point rays (their visibility is
+                # never read).
+                o_shq = torch.where(cand[:, None], o_sh, 0.0)
+                wi_q = torch.where(cand[:, None], wi, canon)
+                t_sh_cap = torch.where(cand, dist, C.T_MIN)
+                with span("query", "shadow"):
+                    t_sh, _, _ = intersect(geometry, o_shq.detach(),
+                                           wi_q.detach(),
+                                           t_max=t_sh_cap.detach(),
+                                           sparse_hint=sparse)
+                vis = t_sh >= dist * (1.0 - C.SHADOW_REL_EPS)
+                geo_term = (cos_s * cos_l * total_area
+                            / torch.clamp(dist * dist, min=1e-12))
+                if cfg.mis and bounce + 1 < cfg.max_depth:
+                    # Power heuristic vs the cosine-BSDF pdf; the last vertex
+                    # keeps w=1 (BSDF counterpart truncated by max_depth).
+                    p_l = (dist * dist) / torch.clamp(cos_l * total_area,
+                                                      min=1e-12)
+                    p_b = cos_s / math.pi
+                    w_nee = (p_l * p_l) / torch.clamp(p_l * p_l + p_b * p_b,
+                                                      min=1e-20)
+                    geo_term = geo_term * w_nee
+                # Only candidate lanes read contrib. Elsewhere dist² may
+                # overflow, making w_nee inf/inf = NaN, and the zero cotangent
+                # the masking where sends back times that NaN is NaN: zero the
+                # term there (the forward result is unchanged).
+                geo_term = torch.where(cand, geo_term, 0.0)
+                contrib = throughput * (alb_m / math.pi) * emis_l \
+                    * geo_term.detach()[:, None]
+                radiance = radiance + torch.where(
+                    (cand & vis)[:, None], contrib, 0.0)
 
-        # --- Scatter: DIFF cosine hemisphere, SPEC mirror, REFR Schlick
-        # Fresnel reflect/refract with total internal reflection ---------
-        d_diff = cosine_hemisphere(
-            n_shade, U[:, rng_mod.BSDF_U1], U[:, rng_mod.BSDF_U2])
-        cos_o = torch.clamp(
-            cos_in * torch.where(cos_in > 0.0, 1.0, -1.0), min=0.0)
-        d_refl = reflect(d, n_shade, cos_o)
-        entering = cos_in > 0.0
-        ior = mrow[:, 7]
-        eta = torch.where(entering, 1.0 / ior, ior)
-        d_refr, tir = refract_dir(d, n_shade, cos_o, eta)
-        cos_x = torch.where(entering, cos_o, dot3(d_refr, n_geom))
-        fres = schlick(cos_x, ior)
-        do_reflect = tir | (U[:, rng_mod.FRESNEL_U] < fres)
-        d_glass = torch.where(do_reflect[:, None], d_refl, d_refr)
-        transmit = is_refr & ~do_reflect
+            if bounce + 1 >= cfg.max_depth:
+                break
 
-        new_d = torch.where(
-            is_diff[:, None], d_diff,
-            torch.where(is_refr[:, None], d_glass, d_refl))
-        throughput = throughput * alb_m
-        off = torch.where(transmit, -C.RAY_OFFSET, C.RAY_OFFSET)
-        o = p + n_shade * off[:, None]
-        d = new_d
-        spec_chain = ~is_diff
-        prev_pdf = torch.where(
-            is_diff, torch.clamp(dot3(n_shade, d), min=0.0) / math.pi, 0.0)
+            # --- Scatter: DIFF cosine hemisphere, SPEC mirror, REFR Schlick
+            # Fresnel reflect/refract with total internal reflection ---------
+            d_diff = cosine_hemisphere(
+                n_shade, U[:, rng_mod.BSDF_U1], U[:, rng_mod.BSDF_U2])
+            cos_o = torch.clamp(
+                cos_in * torch.where(cos_in > 0.0, 1.0, -1.0), min=0.0)
+            d_refl = reflect(d, n_shade, cos_o)
+            entering = cos_in > 0.0
+            ior = mrow[:, 7]
+            eta = torch.where(entering, 1.0 / ior, ior)
+            d_refr, tir = refract_dir(d, n_shade, cos_o, eta)
+            cos_x = torch.where(entering, cos_o, dot3(d_refr, n_geom))
+            fres = schlick(cos_x, ior)
+            do_reflect = tir | (U[:, rng_mod.FRESNEL_U] < fres)
+            d_glass = torch.where(do_reflect[:, None], d_refl, d_refr)
+            transmit = is_refr & ~do_reflect
 
-        # --- Russian roulette ------------------------------------------
-        if bounce >= cfg.rr_start:
-            pcont = torch.clamp(throughput.max(dim=-1).values,
-                                C.RR_CLAMP_LO, C.RR_CLAMP_HI).detach()
-            kill = U[:, rng_mod.RR_U] >= pcont
-            alive = alive & ~kill
-            throughput = torch.where(
-                alive[:, None], throughput / pcont[:, None], throughput)
+            new_d = torch.where(
+                is_diff[:, None], d_diff,
+                torch.where(is_refr[:, None], d_glass, d_refl))
+            throughput = throughput * alb_m
+            off = torch.where(transmit, -C.RAY_OFFSET, C.RAY_OFFSET)
+            o = p + n_shade * off[:, None]
+            d = new_d
+            spec_chain = ~is_diff
+            prev_pdf = torch.where(
+                is_diff, torch.clamp(dot3(n_shade, d), min=0.0) / math.pi, 0.0)
 
-        # --- Stream compaction / coherence sort ------------------------
-        if cfg.compact:
-            key = _coherence_key(o, d, alive, scene_lo, scene_hi)
-            perm = torch.argsort(key, stable=True)
-            # One (N, 16) row gather of the packed state; ints ride as
-            # bit-cast f32 columns, so the permuted values are exact.
-            flags = alive.to(torch.float32) * 2.0 \
-                + spec_chain.to(torch.float32)
-            pid32 = pixel_ids.to(torch.int32)  # wraps ids >= 2^31
-            state = torch.cat([
-                o, d, radiance, throughput,
-                pid32.view(torch.float32)[:, None],
-                slot.view(torch.float32)[:, None],
-                flags[:, None], prev_pdf[:, None],
-            ], dim=1)[perm]
-            o = state[:, 0:3]
-            d = state[:, 3:6]
-            radiance = state[:, 6:9]
-            throughput = state[:, 9:12]
-            pixel_ids = state[:, 12].contiguous().view(torch.int32) \
-                .to(torch.int64) & 0xFFFFFFFF
-            slot = state[:, 13].contiguous().view(torch.int32)
-            fl = state[:, 14]
-            alive = fl >= 2.0
-            spec_chain = (fl == 1.0) | (fl == 3.0)
-            prev_pdf = state[:, 15]
+            # --- Russian roulette ------------------------------------------
+            if bounce >= cfg.rr_start:
+                pcont = torch.clamp(throughput.max(dim=-1).values,
+                                    C.RR_CLAMP_LO, C.RR_CLAMP_HI).detach()
+                kill = U[:, rng_mod.RR_U] >= pcont
+                alive = alive & ~kill
+                throughput = torch.where(
+                    alive[:, None], throughput / pcont[:, None], throughput)
+
+            # --- Stream compaction / coherence sort ------------------------
+            if cfg.compact:
+                with span("compact"):
+                    key = _coherence_key(o, d, alive, scene_lo, scene_hi)
+                    perm = torch.argsort(key, stable=True)
+                    # One (N, 16) row gather of the packed state; ints ride as
+                    # bit-cast f32 columns, so the permuted values are exact.
+                    flags = alive.to(torch.float32) * 2.0 \
+                        + spec_chain.to(torch.float32)
+                    pid32 = pixel_ids.to(torch.int32)  # wraps ids >= 2^31
+                    state = torch.cat([
+                        o, d, radiance, throughput,
+                        pid32.view(torch.float32)[:, None],
+                        slot.view(torch.float32)[:, None],
+                        flags[:, None], prev_pdf[:, None],
+                    ], dim=1)[perm]
+                    o = state[:, 0:3]
+                    d = state[:, 3:6]
+                    radiance = state[:, 6:9]
+                    throughput = state[:, 9:12]
+                    pixel_ids = state[:, 12].contiguous().view(torch.int32) \
+                        .to(torch.int64) & 0xFFFFFFFF
+                    slot = state[:, 13].contiguous().view(torch.int32)
+                    fl = state[:, 14]
+                    alive = fl >= 2.0
+                    spec_chain = (fl == 1.0) | (fl == 3.0)
+                    prev_pdf = state[:, 15]
 
     if cfg.compact and cfg.max_depth > 1:
         # Unscramble to the caller's ray order: `slot` is a permutation of

@@ -40,6 +40,7 @@ from ..accel.clusters import (
     unsplit_columns,
 )
 from ..engine.intersect import merge_spheres
+from ..utils.profiling import span
 from . import _build
 from .boundary import no_gradient
 
@@ -594,33 +595,40 @@ def closest_hit_cluster(geom, o, d, t_max=None, use_cull: bool = True):
     n_clusters = int(geom.cl_lo.shape[0])
     if n_clusters == 0:
         raise ValueError("no cluster tables: call with_clusters(scene)")
-    R0 = o.shape[0]
-    o_p, d_p, t_max_p = _pad_rays(o, d, t_max)
-    t_exit = exit_bound(geom.cl_lo, geom.cl_hi, o_p, d_p)
-    t_max_p = t_exit if t_max_p is None else torch.minimum(t_max_p, t_exit)
-    rayf = ray_features(o_p, d_p, t_max_p)
-    B = o_p.shape[0] // RAY_BLOCK
-    if use_cull:
-        extra = None
-        if 1 < n_clusters <= RAY_CULL_MAX_C:
-            extra = ray_cluster_mask(geom.cl_lo, geom.cl_hi, o_p, d_p,
-                                     t_max_p)
-        elif geom.su_lo.shape[0] > 1:
-            extra = ray_super_mask(geom.su_lo, geom.su_hi, geom.cl_super,
-                                   o_p, d_p, t_max_p)
-        cand, count, tnear = cull_candidates(
-            geom.cl_lo, geom.cl_hi, o_p, d_p, t_max=t_max_p,
-            extra_mask=extra,
-        )
-    else:
-        cand = torch.arange(n_clusters, dtype=torch.int32, device=o.device)
-        cand = cand.expand(B, n_clusters).contiguous()
-        count = torch.full((B,), n_clusters, dtype=torch.int32,
-                           device=o.device)
-        tnear = torch.full((B, n_clusters), -torch.inf, dtype=torch.float32,
-                           device=o.device)
-    t_best, slot, _, _ = cluster_hit(cand, count, tnear, rayf,
-                                     geom.cl_feat_split, geom.cl_lo,
-                                     geom.cl_hi)
-    t_out, n_best, m_best = decode_winner(geom, slot[:R0], t_best[:R0])
-    return merge_spheres(geom, o, d, t_out, n_best, m_best)
+    with span("cluster"):
+        R0 = o.shape[0]
+        with span("cluster.cull"):
+            o_p, d_p, t_max_p = _pad_rays(o, d, t_max)
+            t_exit = exit_bound(geom.cl_lo, geom.cl_hi, o_p, d_p)
+            t_max_p = (t_exit if t_max_p is None
+                       else torch.minimum(t_max_p, t_exit))
+            rayf = ray_features(o_p, d_p, t_max_p)
+            B = o_p.shape[0] // RAY_BLOCK
+            if use_cull:
+                extra = None
+                if 1 < n_clusters <= RAY_CULL_MAX_C:
+                    extra = ray_cluster_mask(geom.cl_lo, geom.cl_hi, o_p,
+                                             d_p, t_max_p)
+                elif geom.su_lo.shape[0] > 1:
+                    extra = ray_super_mask(geom.su_lo, geom.su_hi,
+                                           geom.cl_super, o_p, d_p, t_max_p)
+                cand, count, tnear = cull_candidates(
+                    geom.cl_lo, geom.cl_hi, o_p, d_p, t_max=t_max_p,
+                    extra_mask=extra,
+                )
+            else:
+                cand = torch.arange(n_clusters, dtype=torch.int32,
+                                    device=o.device)
+                cand = cand.expand(B, n_clusters).contiguous()
+                count = torch.full((B,), n_clusters, dtype=torch.int32,
+                                   device=o.device)
+                tnear = torch.full((B, n_clusters), -torch.inf,
+                                   dtype=torch.float32, device=o.device)
+        with span("cluster.k1"):
+            t_best, slot, _, _ = cluster_hit(cand, count, tnear, rayf,
+                                             geom.cl_feat_split, geom.cl_lo,
+                                             geom.cl_hi)
+        with span("cluster.decode"):
+            t_out, n_best, m_best = decode_winner(geom, slot[:R0],
+                                                  t_best[:R0])
+            return merge_spheres(geom, o, d, t_out, n_best, m_best)

@@ -48,6 +48,7 @@ import torch
 
 from .. import constants as C
 from ..engine.intersect import merge_spheres
+from ..utils.profiling import host_read, span
 from . import _build
 from .boundary import no_gradient
 from .intersect_cluster import (
@@ -203,8 +204,9 @@ def _window(cells, entry, oidx, ptr, width: int):
     (R, width) cells and entries, -1 / _ENTRY_INF past the end."""
     R = ptr.shape[0]
     rel = oidx - ptr[None, :]
-    s, r = torch.nonzero((oidx >= 0) & (rel >= 0) & (rel < width),
-                         as_tuple=True)
+    with host_read("window.nonzero"):
+        s, r = torch.nonzero((oidx >= 0) & (rel >= 0) & (rel < width),
+                             as_tuple=True)
     cw = torch.full((R, width), -1, dtype=torch.int32, device=ptr.device)
     ew = torch.full((R, width), _ENTRY_INF, dtype=torch.float32,
                     device=ptr.device)
@@ -242,7 +244,8 @@ def pair_candidates(cell_s: torch.Tensor, cell_start: torch.Tensor,
     i = torch.arange(P, device=dev)
     first = i % pair_block == 0
     first[1:] |= cell_s[1:] != cell_s[:-1]
-    seg_pos = torch.nonzero(first).squeeze(1)
+    with host_read("bin.nonzero"):
+        seg_pos = torch.nonzero(first).squeeze(1)
     seg_cell = cell_s[seg_pos].to(torch.int64)
     seg_start = cell_start[seg_cell].to(torch.int64)
     seg_len = cell_start[seg_cell + 1].to(torch.int64) - seg_start
@@ -250,7 +253,8 @@ def pair_candidates(cell_s: torch.Tensor, cell_start: torch.Tensor,
     block_total.index_add_(0, seg_pos // pair_block, seg_len)
     offsets = torch.cat([block_total.new_zeros((1,)),
                          torch.cumsum(block_total, dim=0)])
-    total = int(offsets[-1])
+    with host_read("bin.total"):
+        total = int(offsets[-1])
     seg_first = torch.cumsum(seg_len, dim=0) - seg_len
     cand = torch.repeat_interleave(seg_start - seg_first, seg_len,
                                    output_size=total) \
@@ -419,36 +423,44 @@ def _phase(cellsW, ray_ids, rayf, idx_best, cell_start, feat,
     (idx_best) in place; returns the pair kernel's visit total."""
     Rx, W = cellsW.shape
     flat = cellsW.reshape(-1)
-    pos = torch.nonzero(flat >= 0).squeeze(1)  # ray-major pair positions
-    if pos.numel() == 0:
-        return 0
-    if pair_block is None:
-        pair_block = _auto_pair_block(pos.numel(), cell_start.shape[0] - 1)
-    cell_s, order = torch.sort(flat[pos], stable=True)
-    pos_s = pos[order]
-    pair_ray = ray_ids[pos_s // W].to(torch.int32)
-    offsets, cand = pair_candidates(cell_s, cell_start, pair_block)
-    t_pair, slot_pair, visits = pair_hit(offsets, cand, pair_ray, rayf,
-                                         feat, pair_block)
-    # Min-combine pair results back to rays: scatter to the dense (Rx, W)
-    # pair grid (positions are unique), then a row min; ties take the
-    # largest slot among equal t (the reference's rule).
-    t_rw = torch.full((Rx * W,), C.T_FAR, dtype=torch.float32,
-                      device=flat.device)
-    idx_rw = torch.full((Rx * W,), -1, dtype=torch.int32, device=flat.device)
-    t_rw[pos_s] = t_pair
-    idx_rw[pos_s] = slot_pair
-    t_rw = t_rw.reshape(Rx, W)
-    idx_rw = idx_rw.reshape(Rx, W)
-    t_from = t_rw.min(dim=1).values
-    idx_from = torch.where(t_rw == t_from[:, None], idx_rw, -1) \
-        .max(dim=1).values
-    t_best = rayf[_FEAT_USED]
-    t_old = t_best[ray_ids]
-    improved = (t_from < t_old) & (idx_from >= 0)
-    t_best[ray_ids] = torch.where(improved, t_from, t_old)
-    idx_best[ray_ids] = torch.where(improved, idx_from, idx_best[ray_ids])
-    return visits.to(torch.int64).sum()
+    with span("grid.bin"):
+        with host_read("phase.nonzero"):
+            # Ray-major pair positions.
+            pos = torch.nonzero(flat >= 0).squeeze(1)
+        if pos.numel() == 0:
+            return 0
+        if pair_block is None:
+            pair_block = _auto_pair_block(pos.numel(),
+                                          cell_start.shape[0] - 1)
+        cell_s, order = torch.sort(flat[pos], stable=True)
+        pos_s = pos[order]
+        pair_ray = ray_ids[pos_s // W].to(torch.int32)
+        offsets, cand = pair_candidates(cell_s, cell_start, pair_block)
+    with span("grid.k2"):
+        t_pair, slot_pair, visits = pair_hit(offsets, cand, pair_ray, rayf,
+                                             feat, pair_block)
+    with span("grid.combine"):
+        # Min-combine pair results back to rays: scatter to the dense
+        # (Rx, W) pair grid (positions are unique), then a row min; ties
+        # take the largest slot among equal t (the reference's rule).
+        t_rw = torch.full((Rx * W,), C.T_FAR, dtype=torch.float32,
+                          device=flat.device)
+        idx_rw = torch.full((Rx * W,), -1, dtype=torch.int32,
+                            device=flat.device)
+        t_rw[pos_s] = t_pair
+        idx_rw[pos_s] = slot_pair
+        t_rw = t_rw.reshape(Rx, W)
+        idx_rw = idx_rw.reshape(Rx, W)
+        t_from = t_rw.min(dim=1).values
+        idx_from = torch.where(t_rw == t_from[:, None], idx_rw, -1) \
+            .max(dim=1).values
+        t_best = rayf[_FEAT_USED]
+        t_old = t_best[ray_ids]
+        improved = (t_from < t_old) & (idx_from >= 0)
+        t_best[ray_ids] = torch.where(improved, t_from, t_old)
+        idx_best[ray_ids] = torch.where(improved, idx_from,
+                                        idx_best[ray_ids])
+        return visits.to(torch.int64).sum()
 
 
 def _ladder_sizes(R: int, ladder, staged: bool) -> list[int]:
@@ -500,6 +512,14 @@ def closest_hit_grid(geom, o, d, t_max=None,
     if We < 1 or first_steps < 0:
         raise ValueError(f"need era_steps >= 1 and first_steps >= 0; got "
                          f"{We}, {first_steps}")
+    with span("grid"):
+        return _walk(geom, o, d, t_max, first_steps, We, ladder,
+                     occupied_windows, pair_block, stats)
+
+
+def _walk(geom, o, d, t_max, first_steps, We, ladder, occupied_windows,
+          pair_block, stats):
+    """closest_hit_grid's walk (its arguments checked)."""
     axis = grid_axis(geom)
     dev = o.device
     R = o.shape[0]
@@ -526,39 +546,45 @@ def closest_hit_grid(geom, o, d, t_max=None,
     visits = torch.zeros((), dtype=torch.int64, device=dev)
     every = torch.arange(R, device=dev)
     if W0 > 0:
-        if ow is not None:
-            cells0, entry0, oidx0 = dda_cells(o, d, t_cap, **dda)
-            cellsA, entryA = _window(cells0, entry0, oidx0,
-                                     torch.zeros_like(idx_best), W0 + 1)
-            done0 = cellsA[:, 0] < 0  # no occupied cell at all
-            cellsW0 = torch.where(done0[:, None], -1, cellsA[:, :W0])
-            next_cell0 = cellsA[:, W0]
-            next_entry0 = entryA[:, W0]
-        else:
-            L0 = min(W0 + 1, S)
-            cells0, entry0 = dda_cells(o, d, t_cap, length=L0, **dda)
-            done0 = cells0[0] < 0  # no cells (missed grid / dead lane)
-            cellsW0 = torch.where(done0[:, None], -1, cells0[:W0].T)
-            if L0 > W0:
-                next_cell0 = cells0[W0]
-                next_entry0 = entry0[W0]
-            else:  # W0 covers the whole grid: nothing can remain
-                next_cell0 = torch.full_like(idx_best, -1)
-                next_entry0 = torch.full_like(t_best, _ENTRY_INF)
-        visits = visits + _phase(cellsW0, every, rayf, idx_best, cell_start,
-                                 feat, pair_block)
-        resolved0 = t_best <= next_entry0 * _ENTRY_REL - _ENTRY_ABS
-        done = done0 | (next_cell0 < 0) | resolved0
+        with span("grid.stage_a"):
+            with span("grid.dda"):
+                if ow is not None:
+                    cells0, entry0, oidx0 = dda_cells(o, d, t_cap, **dda)
+                    cellsA, entryA = _window(cells0, entry0, oidx0,
+                                             torch.zeros_like(idx_best),
+                                             W0 + 1)
+                    done0 = cellsA[:, 0] < 0  # no occupied cell at all
+                    cellsW0 = torch.where(done0[:, None], -1, cellsA[:, :W0])
+                    next_cell0 = cellsA[:, W0]
+                    next_entry0 = entryA[:, W0]
+                else:
+                    L0 = min(W0 + 1, S)
+                    cells0, entry0 = dda_cells(o, d, t_cap, length=L0, **dda)
+                    # No cells: missed grid or dead lane.
+                    done0 = cells0[0] < 0
+                    cellsW0 = torch.where(done0[:, None], -1, cells0[:W0].T)
+                    if L0 > W0:
+                        next_cell0 = cells0[W0]
+                        next_entry0 = entry0[W0]
+                    else:  # W0 covers the whole grid: nothing can remain
+                        next_cell0 = torch.full_like(idx_best, -1)
+                        next_entry0 = torch.full_like(t_best, _ENTRY_INF)
+            visits = visits + _phase(cellsW0, every, rayf, idx_best,
+                                     cell_start, feat, pair_block)
+            resolved0 = t_best <= next_entry0 * _ENTRY_REL - _ENTRY_ABS
+            done = done0 | (next_cell0 < 0) | resolved0
     else:
         # Dead lanes and grid misses only; a ray whose path holds no
         # occupied cell retires after its first era.
-        done = dda_cells(o, d, t_cap, length=1, **dda)[0][0] < 0
+        with span("grid.dda"):
+            done = dda_cells(o, d, t_cap, length=1, **dda)[0][0] < 0
     ptr = torch.full((R,), W0, dtype=torch.int32, device=dev)
 
     # ---- stage B: eras over the live rays ----
     sizes = _ladder_sizes(R, ladder, W0 > 0)
     n_phases = -(-S // We)
-    live = torch.nonzero(~done).squeeze(1)
+    with host_read("era.live"):
+        live = torch.nonzero(~done).squeeze(1)
     live_a = live.numel()
     # Every era advances each ray it takes by We cells, and a ray retires
     # after at most n_phases eras, so this bound is never reached by a
@@ -573,30 +599,40 @@ def closest_hit_grid(geom, o, d, t_max=None,
         while level + 1 < len(sizes) and live.numel() <= sizes[level + 1]:
             level += 1
         sel = live[:sizes[level]]
-        o_s, d_s, tm_s = o[sel], d[sel], t_cap[sel]
-        ptr_s = ptr[sel]
-        if ow is not None:
-            cells_e, entry_e, oidx_e = dda_cells(o_s, d_s, tm_s, **dda)
-            cellsW_p, entryW_p = _window(cells_e, entry_e, oidx_e, ptr_s,
-                                         We + 1)
-        else:
-            L = min(S, int(ptr_s.max()) + We + 1)
-            cells_e, entry_e = dda_cells(o_s, d_s, tm_s, length=L, **dda)
-            cellsW_p, entryW_p = _step_window(cells_e, entry_e, ptr_s,
-                                              We + 1)
-        visits = visits + _phase(cellsW_p[:, :We].contiguous(), sel, rayf,
-                                 idx_best, cell_start, feat, pair_block)
-        resolved = t_best[sel] <= entryW_p[:, We] * _ENTRY_REL - _ENTRY_ABS
-        done[sel] = (cellsW_p[:, We] < 0) | resolved
-        ptr[sel] = ptr_s + We
-        eras += 1
-        live = torch.nonzero(~done).squeeze(1)
+        with span("grid.era", {"era": eras, "rays": sel.shape[0]}):
+            o_s, d_s, tm_s = o[sel], d[sel], t_cap[sel]
+            ptr_s = ptr[sel]
+            with span("grid.dda"):
+                if ow is not None:
+                    cells_e, entry_e, oidx_e = dda_cells(o_s, d_s, tm_s,
+                                                         **dda)
+                    cellsW_p, entryW_p = _window(cells_e, entry_e, oidx_e,
+                                                 ptr_s, We + 1)
+                else:
+                    with host_read("era.width"):
+                        L = min(S, int(ptr_s.max()) + We + 1)
+                    cells_e, entry_e = dda_cells(o_s, d_s, tm_s, length=L,
+                                                 **dda)
+                    cellsW_p, entryW_p = _step_window(cells_e, entry_e,
+                                                      ptr_s, We + 1)
+            visits = visits + _phase(cellsW_p[:, :We].contiguous(), sel,
+                                     rayf, idx_best, cell_start, feat,
+                                     pair_block)
+            resolved = (t_best[sel]
+                        <= entryW_p[:, We] * _ENTRY_REL - _ENTRY_ABS)
+            done[sel] = (cellsW_p[:, We] < 0) | resolved
+            ptr[sel] = ptr_s + We
+            eras += 1
+            with host_read("era.live"):
+                live = torch.nonzero(~done).squeeze(1)
 
     t_out, n_best, m_best = decode_winner(geom, idx_best, t_best)
     t_out, n_best, m_best = merge_spheres(geom, o, d, t_out, n_best, m_best)
     if stats:
+        with host_read("stats.visits"):
+            visits = int(visits)
         info = {"eras": eras, "live_after_phase0": live_a,
                 "n_phases": n_phases, "era_rays": sizes[0],
-                "visits": int(visits)}
+                "visits": visits}
         return t_out, n_best, m_best, info
     return t_out, n_best, m_best

@@ -40,6 +40,7 @@ import torch
 
 from .. import constants as C
 from ..engine.intersect import merge_spheres
+from ..utils.profiling import host_read, span
 from . import _build
 from .boundary import no_gradient
 from .intersect_cluster import (
@@ -188,6 +189,12 @@ def closest_hit_stream(geom, o, d, max_cand: int = ROUND_CAND, t_max=None):
         raise ValueError("no cluster tables: call with_clusters(scene)")
     if max_cand < 1:
         raise ValueError(f"max_cand must be >= 1; got {max_cand}")
+    with span("stream"):
+        return _rounds(geom, o, d, max_cand, t_max, n_clusters)
+
+
+def _rounds(geom, o, d, max_cand, t_max, n_clusters):
+    """closest_hit_stream's rounds (its arguments checked)."""
     R0 = o.shape[0]
     o_p, d_p, t_max_p = _pad_rays(o, d, t_max)
     # Scene-box exit cap: without it, rays that miss the scene never
@@ -214,8 +221,9 @@ def closest_hit_stream(geom, o, d, max_cand: int = ROUND_CAND, t_max=None):
     slot_cur = torch.full_like(t_cur, -1, dtype=torch.int32)
     resolved = count == 0  # empty blocks are born resolved
     for r in range(n_rounds):
-        if bool(resolved.all()):
-            break
+        with host_read("round.resolved"):
+            if bool(resolved.all()):
+                break
         start = r * K
         cnt_r = torch.where(resolved, 0, torch.clamp(count - start, 0, K))
         t_cur, slot_cur, _, _ = stream_hit(

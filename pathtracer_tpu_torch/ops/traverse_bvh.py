@@ -65,6 +65,7 @@ from ..accel.traverse import (
     slab,
     walk,
 )
+from ..utils.profiling import span
 from . import _build
 from .boundary import no_gradient
 from .intersect_cluster import _safe_inverse
@@ -405,6 +406,8 @@ def closest_hit_bvh(geom, o, d, max_leaf: int | None = None):
             or geom.bvh_pairs.shape[0] == 0):
         raise ValueError("the Geometry's packed BVH tables do not match its "
                          "BVH: build it with accel.build.with_bvh")
-    t, tri, _, _ = bvh_hit(geom.bvh_nodes, geom.bvh_pairs, geom.bvh_tris,
-                           o.contiguous(), d.contiguous(), max_leaf)
-    return hit_from_index(geom, o, d, t, tri)
+    with span("bvh"):
+        t, tri, _, _ = bvh_hit(geom.bvh_nodes, geom.bvh_pairs,
+                               geom.bvh_tris, o.contiguous(), d.contiguous(),
+                               max_leaf)
+        return hit_from_index(geom, o, d, t, tri)

@@ -30,6 +30,7 @@ from ..config import RenderConfig
 from ..diff.render import render_image, value_and_grad
 from ..engine.wavefront import render_accumulate
 from ..scene.model import Materials, Scene
+from ..utils.profiling import span
 
 AXIS = "rays"
 
@@ -84,9 +85,10 @@ class Mesh:
         """Every rank's x concatenated along dim 0, in rank order."""
         if self.group is None:
             return x
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts)
+        with span("gather"):
+            parts = [torch.empty_like(x) for _ in range(self.size)]
+            dist.all_gather(parts, x.contiguous(), group=self.group)
+            return torch.cat(parts)
 
     def shard(self, ids: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous slice of `ids`, on its device."""

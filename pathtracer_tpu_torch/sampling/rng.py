@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 (LIGHT_SEL, LIGHT_U1, LIGHT_U2, BSDF_U1, BSDF_U2, RR_U,
  FRESNEL_U) = range(7)
 N_DRAWS = 7
@@ -96,11 +98,14 @@ def pixel_jitter(seed, spp_idx, pixel_ids: torch.Tensor) -> torch.Tensor:
     pixel_ids are absolute row-major ids (y * width + x), any integer dtype,
     read as uint32.
     """
-    return _per_pixel(_stream_key(seed, spp_idx, _JITTER_TAG), pixel_ids, 2)
+    with span("sampler"):
+        return _per_pixel(_stream_key(seed, spp_idx, _JITTER_TAG),
+                          pixel_ids, 2)
 
 
 def bounce_uniforms(seed, spp_idx, bounce, pixel_ids: torch.Tensor
                     ) -> torch.Tensor:
     """(N, N_DRAWS) uniforms for one bounce of the given pixels' paths."""
-    return _per_pixel(_stream_key(seed, spp_idx, bounce), pixel_ids,
-                      N_DRAWS)
+    with span("sampler"):
+        return _per_pixel(_stream_key(seed, spp_idx, bounce), pixel_ids,
+                          N_DRAWS)

@@ -9,7 +9,21 @@
   * `device_kernel_times(fn, reps)` — each device kernel's device time and
     launches over reps profiled runs of fn;
   * `card_line()` — the card's name and power limit as nvidia-smi gives
-    them, written beside every number measured on the card.
+    them, written beside every number measured on the card;
+  * `span(name, args=None)` — a context manager that names a stretch of
+    the port's host code ``pt.<name>`` on the profiler's timeline, so the
+    device operations launched inside it and the device's idle time while
+    it is open can be read from the trace. Only a running profiler
+    (`torch.profiler.profile`, `trace`, `device_kernel_times`) records
+    it: a profiler is the switch. With none running, `span` checks that
+    and returns a shared no-op context, with no record, clock read, string
+    formatting, allocation or device work. `args` (a str, a number or a
+    dict) tells spans of one name apart; the profiler's trace keeps no
+    record's arguments, so they go into the recorded name:
+    ``pt.<name>[<args>]``, a dict as ``key=value`` pairs joined by commas;
+  * `host_read(where)` — ``span("read", where)``, placed around a
+    statement that already blocks on the device (a `nonzero`, an `int()`
+    of a device tensor): it names the read and never adds one.
 """
 
 from __future__ import annotations
@@ -85,6 +99,27 @@ def device_kernel_times(fn, reps: int = 1) -> dict:
             tot[0] += e.device_time_total / 1e3
             tot[1] += 1
     return out
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, args=None):
+    """``pt.<name>`` (``pt.<name>[<args>]``) while a profiler records;
+    otherwise a shared no-op context (module docstring)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    if args is not None:
+        if isinstance(args, dict):
+            args = ",".join(f"{k}={v}" for k, v in args.items())
+        name = f"{name}[{args}]"
+    return torch.profiler.record_function("pt." + name)
+
+
+def host_read(where: str):
+    """The span ``pt.read[<where>]`` around a statement that already waits
+    for the device; it adds no read or synchronisation of its own."""
+    return span("read", where)
 
 
 def card_line() -> str:

@@ -241,7 +241,7 @@ def test_port_imports_no_jax():
         "loss, g = pt.grad_render(pt.build_scene(cfg.scene), cfg, "
         "device='cpu')\n"
         "assert bool(torch.isfinite(g.albedo).all()) and float(loss) > 0\n"
-        "from pathtracer_tpu_torch import band_profile  # noqa: F401\n"
+        "from pathtracer_tpu_torch.utils import profiling  # noqa: F401\n"
         "from pathtracer_tpu_torch.ops import visit_probe\n"
         "assert visit_probe.main(['split_pre', '--device', 'cpu']) == 0\n"
         "from pathtracer_tpu_torch.parallel import mesh as pmesh\n"
