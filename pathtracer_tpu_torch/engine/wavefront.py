@@ -84,7 +84,8 @@ def _intersector(geom, cfg: RenderConfig):
     route), else the stream route with a warning, as in the reference.
     Otherwise, with use_bvh and a BVH, "jnp" and "pallas" (and a backend
     whose tables are missing) take the BVH walk of ops/traverse_bvh.py,
-    which ignores t_max as the reference's walks do; without a BVH, brute
+    which is handed t_max and does not use it yet (its walk runs to the
+    closest hit, as the reference's walks do); without a BVH, brute
     force. Unlike the reference, "grid" without grid tables and "stream"
     without cluster tables raise instead of falling through.
     """
@@ -130,7 +131,7 @@ def _intersector(geom, cfg: RenderConfig):
         from ..ops.traverse_bvh import closest_hit_bvh
 
         def hit(g, o, d, t_max=None, sparse_hint=False):
-            return closest_hit_bvh(g, o, d)
+            return closest_hit_bvh(g, o, d, t_max=t_max)
 
         hit.impl = "pallas" if cfg.backend == "pallas" else "bvh"
         return hit

@@ -46,6 +46,16 @@ kernel or raises. ``bvh_hit_ordered_plain`` is the kernel's walk in plain
 PyTorch (the same visit order, pushes, pops and culls), which the kernel
 equals bit for bit: t, triangle and per-block counts. The tests and
 chip_smoke.py use it; the main path never does.
+
+``closest_hit_bvh`` is the engine's query on this route. It takes the
+shadow bound ``t_max`` that every route takes, and does not use it yet:
+the walk runs to the closest hit, which the route contract allows (a hit
+at t >= t_max may read as a miss, or as the hit). Its span is
+``pt.bvh[rays=<lanes>]``. While a profiler records (the switch of
+utils/profiling.py:span), it also adds the query's lanes and the walk's
+per-block visits and triangle tests to ``STATS``, an int64 tensor (lanes,
+visits, tests) on the query's device, with no host read; ``take_stats``
+returns the counts and resets them. With no profiler it counts nothing.
 """
 
 from __future__ import annotations
@@ -65,7 +75,7 @@ from ..accel.traverse import (
     slab,
     walk,
 )
-from ..utils.profiling import span
+from ..utils.profiling import recording, span
 from . import _build
 from .boundary import no_gradient
 from .intersect_cluster import _safe_inverse
@@ -79,6 +89,9 @@ STACK_DEPTH = 64  # entries of the walk's per-ray stack (traverse_bvh.cu)
 
 # Kernel launches through bvh_hit (CUDA tensors only).
 LAUNCHES = 0
+# (lanes, visits, tests) of closest_hit_bvh's queries while a profiler
+# records (module docstring); None until the first such query.
+STATS: torch.Tensor | None = None
 
 
 def _tree_depth(count, skip):
@@ -399,15 +412,44 @@ def _bvh_hit(nodes, pairs, tris, o, d, max_leaf: int | None = None):
     return t, tri, visits, tests
 
 
-def closest_hit_bvh(geom, o, d, max_leaf: int | None = None):
+def take_stats() -> torch.Tensor | None:
+    """The (lanes, visits, tests) counted into STATS since the last call
+    (None if no query was counted); STATS starts again from zero."""
+    global STATS
+    out, STATS = STATS, None
+    return out
+
+
+def _count(lanes: int, visits, tests) -> None:
+    global STATS
+    if STATS is None or STATS.device != visits.device:
+        # A normal tensor even under inference mode (render's), so that a
+        # query outside it can still add to it.
+        with torch.inference_mode(False):
+            STATS = torch.zeros((3,), dtype=torch.int64,
+                                device=visits.device)
+    STATS[0] += lanes
+    STATS[1:] += torch.stack((visits.sum(dtype=torch.int64),
+                              tests.sum(dtype=torch.int64)))
+
+
+def closest_hit_bvh(geom, o, d, max_leaf: int | None = None, *,
+                    t_max=None):
     """Closest hit through the BVH kernel (triangles) + brute spheres; the
-    engine/intersect.py:brute contract (t == T_FAR on a miss)."""
+    engine/intersect.py:brute contract (t == T_FAR on a miss).
+
+    `t_max` ((R,) f32 or None) is the route contract's shadow bound: it is
+    accepted and not yet used, so a hit at t >= t_max reads as that hit.
+    While a profiler records, the query's lanes, visits and tests are added
+    to STATS (module docstring)."""
     if (geom.bvh_nodes.shape[0] != geom.bvh_lo.shape[0]
             or geom.bvh_pairs.shape[0] == 0):
         raise ValueError("the Geometry's packed BVH tables do not match its "
                          "BVH: build it with accel.build.with_bvh")
-    with span("bvh"):
-        t, tri, _, _ = bvh_hit(geom.bvh_nodes, geom.bvh_pairs,
-                               geom.bvh_tris, o.contiguous(), d.contiguous(),
-                               max_leaf)
+    with span("bvh", {"rays": o.shape[0]}):
+        t, tri, visits, tests = bvh_hit(geom.bvh_nodes, geom.bvh_pairs,
+                                        geom.bvh_tris, o.contiguous(),
+                                        d.contiguous(), max_leaf)
+        if recording():
+            _count(o.shape[0], visits, tests)
         return hit_from_index(geom, o, d, t, tri)

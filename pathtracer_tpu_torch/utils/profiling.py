@@ -21,6 +21,9 @@
     dict) tells spans of one name apart; the profiler's trace keeps no
     record's arguments, so they go into the recorded name:
     ``pt.<name>[<args>]``, a dict as ``key=value`` pairs joined by commas;
+  * `recording()` — whether a profiler records: `span`'s switch, which
+    counters kept only under a profiler (ops/traverse_bvh.py's STATS)
+    read too;
   * `host_read(where)` — ``span("read", where)``, placed around a
     statement that already blocks on the device (a `nonzero`, an `int()`
     of a device tensor): it names the read and never adds one.
@@ -104,10 +107,16 @@ def device_kernel_times(fn, reps: int = 1) -> dict:
 _OFF = contextlib.nullcontext()
 
 
+def recording() -> bool:
+    """Whether a profiler records: the switch of `span`, and of the
+    counters that the port keeps only while one does."""
+    return torch._C._autograd._profiler_enabled()
+
+
 def span(name: str, args=None):
     """``pt.<name>`` (``pt.<name>[<args>]``) while a profiler records;
     otherwise a shared no-op context (module docstring)."""
-    if not torch._C._autograd._profiler_enabled():
+    if not recording():
         return _OFF
     if args is not None:
         if isinstance(args, dict):

@@ -267,8 +267,11 @@ def test_other_routes_one_span_per_query(monkeypatch, route):
     rec = _Recorder(monkeypatch)
     render(scene, cfg.replace(max_depth=2), device="cpu")
     paths = _nest(rec.spans)
-    mine = [p for p in paths if p[-1] == route]
+    mine = [p for p in paths if _name(p[-1]) == route]
     assert len(mine) == 4 and all(_name(p[-2]) == "query" for p in mine)
+    # The BVH query names its lanes: the frame's 64 pixels in every query.
+    want = "bvh[rays=64]" if route == "bvh" else "stream"
+    assert all(p[-1] == want for p in mine)
 
 
 def test_backward_and_gather_spans(scenes):
