@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the six CUDA sources (the cluster, pair, stream and BVH-walk
-kernels, the grid's DDA window kernel and the three visit-arithmetic
-probes) and the native BVH builder from the repository's sources, all at
-once. Holds each kernel against its
+Builds the seven CUDA sources (the cluster, pair, stream and BVH-walk
+kernels, the grid's DDA window kernel, the sampler's threefry kernel and
+the three visit-arithmetic probes) and the native BVH builder from the
+repository's sources, all at once. Holds each kernel against its
 plain PyTorch version at its main path's shapes (the probes at the probe
 script's shapes and at full width on the bench table, timed beside their
 bounds and a library call; the cluster, pair and stream kernels, whose
@@ -16,7 +16,9 @@ bit for bit against its mirror and at the reference's bar against the
 skip-link walk, on config 3's bounce-0 queries and config 5's bounce-0
 and bounce-1 ones; and on cornell_mesh's BVH built with leaves of up to 4,
 6 and 7 triangles, against brute force, with the bench frame through it),
-runs the probe entry point, renders the golden scenes
+the sampler kernel bit for bit against its plain version on every call of
+a bench frame, timed beside its bound; runs the probe entry point,
+renders the golden scenes
 through the cluster, grid, BVH and stream routes and compares them with
 ``tests/golden``, then drives every path at full size: the ``bench``
 preset (cornell_mesh, cluster route, K1; its frame also against the BVH
@@ -117,6 +119,7 @@ from pathtracer_tpu_torch.roofline import (
     PEAK_BF16,
     PEAK_BYTES,
     PEAK_F32,
+    PEAK_INT32_ISSUE,
     add_bound,
     add_split_bound,
     k1_bytes,
@@ -124,6 +127,7 @@ from pathtracer_tpu_torch.roofline import (
     nbytes,
     new_bound,
     reference_work_ms,
+    sampler_work,
     split_bytes,
     tri_tests,
     warp_tests,
@@ -149,6 +153,9 @@ KERNELS = {
                 "pathtracer_tpu/ops/traverse_pallas.py:92", tb, "LAUNCHES"),
     "grid_dda": ("pathtracer_tpu_torch/ops/csrc/grid_dda.cu",
                  "none: jnp glue in the reference", ig, "DDA_LAUNCHES"),
+    "sampler": ("pathtracer_tpu_torch/ops/csrc/threefry.cu",
+                "none: jax.random threefry in the reference", rng_mod,
+                "SAMPLER_LAUNCHES"),
     "probe_f32": ("pathtracer_tpu_torch/ops/csrc/visit_probe.cu",
                   "scripts/_probe_compile.py:19", vp, "F32_LAUNCHES"),
     "probe_split_in": ("pathtracer_tpu_torch/ops/csrc/visit_probe.cu",
@@ -159,8 +166,11 @@ KERNELS = {
                         "SPLIT_PRE_LAUNCHES"),
 }
 GRID = ("pair_hit", "grid_dda")  # the kernels of the grid route
+# Launched by every frame whatever the route: check_only does not count them
+# as another route's kernels.
+EVERY_FRAME = ("sampler",)
 SOURCES = ("intersect_cluster", "intersect_pair", "intersect_stream",
-           "traverse_bvh", "visit_probe", "grid_dda")
+           "traverse_bvh", "visit_probe", "grid_dda", "threefry")
 CHECK_PIXELS = 256 * 1024  # rays per query in the kernel-vs-plain phases
 BVH_CHECK_PIXELS_C5 = 64 * 1024  # K4 vs plain on the config-5 scene
 # K1-K3 (the split product on the tensor cores) against their plain
@@ -248,11 +258,12 @@ def launches() -> dict:
 
 def check_only(what: str, counts: dict, kernel) -> None:
     """The path launched `kernel` (a name, or a tuple of names: each of
-    them) and no other kernel."""
+    them) and no other kernel but those of EVERY_FRAME."""
     names = (kernel,) if isinstance(kernel, str) else kernel
     for name in names:
         check(counts[name] > 0, f"{what} never launched {name}")
-    others = {k: n for k, n in counts.items() if k not in names and n}
+    others = {k: n for k, n in counts.items()
+              if k not in names and k not in EVERY_FRAME and n}
     check(not others, f"{what} launched {others}")
 
 
@@ -1098,6 +1109,9 @@ def phase_main_path(scene, device, card: str) -> int:
     check(counts["cluster_hit"] == 2 * cfg.max_depth,
           f"{counts['cluster_hit']} kernel launches, expected "
           f"{2 * cfg.max_depth}")
+    check(counts["sampler"] == 1 + cfg.max_depth,
+          f"{counts['sampler']} sampler launches, expected "
+          f"{1 + cfg.max_depth}")
     print(f"[main] render(bench) {cfg.width}x{cfg.height} depth "
           f"{cfg.max_depth}: mean {mean:.6f}, launches {counts}")
     # The same seed through the BVH walk (K4, the f32 product): the split
@@ -1106,6 +1120,70 @@ def phase_main_path(scene, device, card: str) -> int:
 
     time_frames("bench", frame_args(scene, cfg, device), 5, card)
     return counts["cluster_hit"]
+
+
+def record_sampler_calls(args):
+    """The sampler's _per_pixel calls of one trace_sample(*args): per call
+    its key, ids (cloned) and draws per id, in order."""
+    calls = []
+    real = rng_mod._per_pixel
+
+    def recording(key, pixel_ids, n):
+        calls.append((key, pixel_ids.clone(), n))
+        return real(key, pixel_ids, n)
+
+    rng_mod._per_pixel = recording
+    try:
+        wavefront.trace_sample(*args)
+    finally:
+        rng_mod._per_pixel = real
+    return calls
+
+
+def phase_sampler_vs_plain(bench, device) -> tuple[int, dict]:
+    """The sampler kernel against its plain version (_per_pixel_plain) on
+    every sampler call of one full bench frame (1,048,576 ids; the jitter's
+    2 draws per id, then each bounce's 7): bit for bit, one launch per
+    call; each call timed beside the plain version and its bound, the
+    larger of its int32 operations at PEAK_INT32_ISSUE and its bytes
+    (roofline.sampler_work). Returns the kernel's launches in the frame and
+    the totals."""
+    cfg = pt.PRESETS["bench"]
+    reset_launches()
+    calls = record_sampler_calls(frame_args(bench, cfg, device))
+    frame_launches = launches()["sampler"]
+    check(frame_launches == len(calls) == 1 + cfg.max_depth,
+          f"a bench frame made {len(calls)} sampler calls and "
+          f"{frame_launches} launches, expected {1 + cfg.max_depth}")
+    check(all(ids.shape[0] == cfg.n_pixels for _, ids, _ in calls),
+          "a bench-frame sampler call not over every pixel id")
+    out = new_totals()
+    per_call = []
+    for key, ids, n in calls:
+        n0 = rng_mod.SAMPLER_LAUNCHES
+        got = rng_mod._per_pixel(key, ids, n)
+        torch.cuda.synchronize()
+        check(rng_mod.SAMPLER_LAUNCHES == n0 + 1,
+              "_per_pixel launched the kernel once")
+        want = rng_mod._per_pixel_plain(key, ids, n)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"sampler on {ids.shape[0]} ids, {n} draws: the kernel's "
+              "draws differ from the plain version's")
+        n_bytes, n_ops = sampler_work(ids.shape[0], n)
+        bound = add_bound(out, n_bytes, n_ops, PEAK_INT32_ISSUE)
+        ms = cuda_ms(lambda: rng_mod._per_pixel(key, ids, n), 20)
+        plain_ms = cuda_ms(lambda: rng_mod._per_pixel_plain(key, ids, n),
+                           2)
+        add_totals(out, ms, plain_ms, 0.0)
+        per_call.append(f"n={n} {ms:.4f} (bound {bound:.4f})")
+    print(f"[kernel] sampler bench frame: {len(calls)} calls of "
+          f"{cfg.n_pixels} ids, every draw bit-equal to the plain "
+          f"version's; per call ms {per_call}; kernel {out['ms']:.4f} ms, "
+          f"plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"(int32 operations {out['ops_ms']:.4f}, bytes "
+          f"{out['bytes_ms']:.4f}) per frame; {frame_launches} launches in "
+          f"one bench frame")
+    return frame_launches, out
 
 
 def check_against_k4(name, scene, cfg, img) -> None:
@@ -2217,6 +2295,7 @@ def main() -> int:
         phase_max_leaf(device, card)
         phase_goldens(device)
         k1_launches = phase_main_path(bench, device, card)
+        sampler_launches, sampler = phase_sampler_vs_plain(bench, device)
         phase_k1_frame(bench, device, card)
         phase_roofline(bench, device)
         bench_k4 = pt.PRESETS["bench"].replace(backend="jnp")
@@ -2265,6 +2344,7 @@ def main() -> int:
         kernel_entry("cluster_hit", k1_launches, k1),
         kernel_entry("pair_hit", k2_launches, k2),
         kernel_entry("grid_dda", dda_launches, dda),
+        kernel_entry("sampler", sampler_launches, sampler),
         kernel_entry("stream_hit", k3_launches, k3),
         kernel_entry("bvh_hit", k4_launches, k4),
         *(kernel_entry(name, probe_launches[name], probes[name])

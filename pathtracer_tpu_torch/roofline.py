@@ -75,6 +75,21 @@ OPS_PER_NODE = 24
 # u (5 + 1), three cross terms for qvec (9), v (5 + 1), t (5 + 1) and
 # u + v (1); compares not counted.
 OPS_PER_MT_TEST = 46
+# The rate at which int32 instructions can issue: each of an SM's four
+# schedulers issues one warp instruction (32 lanes) a clock, on 132 SMs at
+# the 1.98 GHz boost clock (NVIDIA's Hopper white paper). The INT32 pipe
+# alone has half of it (64 lanes an SM), but adds also issue to the FP32
+# pipe as IMAD, so only the issue rate bounds a mix of adds, shifts and
+# xors from below.
+PEAK_INT32_ISSUE = 132 * 128 * 1.98e9
+# int32 operations per Threefry-2x32 block of threefry.cu: 20 rounds of an
+# add, a rotate (one funnel shift) and a xor, the key's two first adds and
+# five injections of two adds each (the round constant folded into the key
+# word once per key) ...
+OPS_PER_THREEFRY = 72
+# ... and per draw: the xor of the two output words, the shift and the or
+# of the mantissa fill, and the subtraction of 1.0.
+OPS_PER_DRAW = 4
 DEFAULT_RAYS = 262144  # the reference's rays per call
 BATCH = 10  # back-to-back calls per timed batch of a pass
 
@@ -99,6 +114,14 @@ def add_bound(out, n_bytes, n_ops, peak=PEAK_F32) -> float:
     out["ops_ms"] += ops_ms
     out["bound_ms"] += max(bytes_ms, ops_ms)
     return max(bytes_ms, ops_ms)
+
+
+def sampler_work(n_ids: int, n: int) -> tuple[int, int]:
+    """(bytes, int32 operations) of one sampler call of n draws per id:
+    each 8-byte id read once and each f32 draw written once; per id the
+    key's threefry block and one per draw."""
+    return (n_ids * (8 + 4 * n),
+            n_ids * ((1 + n) * OPS_PER_THREEFRY + n * OPS_PER_DRAW))
 
 
 def tri_tests(visits, rays_per_block) -> int:

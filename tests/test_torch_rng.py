@@ -77,3 +77,43 @@ def test_uniforms_in_unit_interval():
     u = rng.bounce_uniforms(0, 0, 0, torch.arange(4096))
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
     assert abs(float(u.mean()) - 0.5) < 0.02
+
+
+def test_cpu_ids_run_the_plain_version():
+    """CPU tensors take the int64 path: the same words as _per_pixel_plain,
+    no kernel launch, any integer dtype read as uint32, and no ids give a
+    (0, n) block."""
+    ids = _ids(11)
+    key = rng._stream_key(11, 2, 1)
+    n0 = rng.SAMPLER_LAUNCHES
+    want = rng._per_pixel_plain(key, _port_ids(ids), rng.N_DRAWS)
+    for port_ids in (_port_ids(ids), torch.from_numpy(ids.astype(np.int32)),
+                     torch.from_numpy(np.repeat(ids.astype(np.int64), 2))
+                     [::2]):
+        got = rng._per_pixel(key, port_ids, rng.N_DRAWS)
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    empty = rng.pixel_jitter(0, 0, torch.zeros(0, dtype=torch.int64))
+    assert empty.shape == (0, 2) and empty.dtype == torch.float32
+    assert rng.SAMPLER_LAUNCHES == n0
+
+
+@pytest.mark.parametrize("ids", [
+    torch.arange(8, dtype=torch.float32),
+    torch.arange(8, dtype=torch.float64),
+    torch.ones(8, dtype=torch.bool),
+    torch.arange(8).reshape(2, 4),
+    torch.tensor(3),
+])
+def test_bad_ids_raise(ids):
+    with pytest.raises(ValueError, match="1-d integer"):
+        rng.bounce_uniforms(0, 0, 0, ids)
+    with pytest.raises(ValueError, match="1-d integer"):
+        rng.pixel_jitter(0, 0, ids)
+
+
+def test_other_devices_raise():
+    ids = torch.arange(8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rng.bounce_uniforms(0, 0, 0, ids)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rng.pixel_jitter(0, 0, ids)
