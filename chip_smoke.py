@@ -1,59 +1,61 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Card checks of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the seven CUDA sources (the cluster, pair, stream and BVH-walk
 kernels, the grid's DDA window kernel, the sampler's threefry kernel and
 the three visit-arithmetic probes) and the native BVH builder from the
-repository's sources, all at once. Holds each kernel against its
-plain PyTorch version at its main path's shapes (the probes at the probe
-script's shapes and at full width on the bench table, timed beside their
-bounds and a library call; the cluster, pair and stream kernels, whose
-visit is the split product on the tensor cores, also against the f32
-product at the reference's bar, the cluster kernel on bounce 0's and
-bounce 1's queries; the BVH walk, K4, against both of its plain versions,
-bit for bit against its mirror and at the reference's bar against the
-skip-link walk, on config 3's bounce-0 queries and config 5's bounce-0
-and bounce-1 ones; and on cornell_mesh's BVH built with leaves of up to 4,
-6 and 7 triangles, against brute force, with the bench frame through it),
-the sampler kernel bit for bit against its plain version on every call of
-a bench frame, timed beside its bound; runs the probe entry point,
-renders the golden scenes
-through the cluster, grid, BVH and stream routes and compares them with
-``tests/golden``, then drives every path at full size: the ``bench``
-preset (cornell_mesh, cluster route, K1; its frame also against the BVH
-walk's image, each of its 8 K1 calls timed, and K1's roofline over the
-bench band's three passes at 262,144 rays per call, ``roofline.py``) and
-the same scene through the BVH walk (K4); ``config2`` and ``config3`` (the
-BVH walk, K4); ``config5`` (big_mesh, 2M triangles, its native BVH and
-the stream route's cluster table checked by check_invariants and
-check_cluster_invariants; grid route, K2 and the DDA window kernel, the
-latter also bit for bit against its plain version on every DDA call of
-the frame, timed beside its bound) and
-the same scene through the BVH walk (K4) and through the stream route
-(K3), each rendered and timed, the grid's and the stream's frames also
-against the same-seed frame through K4, and the grid profile of the same
-three passes on the config-5 scene with its profiler split of K2 against
-its glue (``grid_profile.py --trace``); a value-and-grad step of the full
-bench frame through K1 and through K4; material gradients against central
-differences; the check suite (``checks.py --full``: K1-K4 against brute
-force, the BVH walk and each other, the engine against the port's oracle
-on config 1, cornell_sphlight with and without MIS and the furnace, and a
-value-and-grad step against the oracle's finite differences); the
-sharded path (``parallel/mesh.py``) in child processes: over two gloo
-ranks that share the card, the full bench frame (K1) and the full config-5
-frame (K2), each bit-equal to the single-process frame and timed beside
-it, the bench frame's sharded loss and grads against ``pt.grad_render``
-and two train steps with the materials bit-identical on both ranks; over
-one NCCL rank, the bench frame and a train step; and the scaling script
-through ``torchrun``, its rays/s printed beside ``bench_torch.py``'s; and
-the front end in this process through ``cli.main``: config 3 with a
-checkpoint resumed (equal to ``pt.render``), the bench frame to a PNG (K1
-only), five fit steps on the bench frame (a falling loss), and three
-``bench_torch.py`` runs (forward, ``--grad``, ``--backend jnp``). Every
-phase either passes or raises; the last line of standard output is
-``{"ok": true, "device": {...}}`` only when all passed. There is no CPU
-path: without a CUDA device the script fails at once.
+repository's sources, all at once, then checks the port on the card. It
+measures no frame rate: the port's benchmark is ``python3 ptbench/run.py
+--workload <cell>``.
+
+Holds each kernel against its plain PyTorch version at its main path's
+shapes, both timed with CUDA events beside the kernel's bound
+(``roofline.py``): the probes at the probe script's shapes and at full
+width on the bench table, beside a library call; the cluster, pair and
+stream kernels, whose visit is the split product on the tensor cores, also
+against the f32 product at the reference's bar, the cluster kernel on
+bounce 0's and bounce 1's queries and on each of the bench frame's 8
+calls; the BVH walk, K4, against both of its plain versions, bit for bit
+against its mirror and at the reference's bar against the skip-link walk,
+on config 3's bounce-0 queries and config 5's bounce-0 and bounce-1 ones,
+and on cornell_mesh's BVH built with leaves of up to 4, 6 and 7 triangles,
+against brute force, with the bench frame through it; the sampler kernel
+bit for bit on every call of a bench frame; the DDA window kernel bit for
+bit on every DDA call of a config-5 frame. Runs the probe entry point and
+renders the golden scenes through the cluster, grid, BVH and stream routes
+against ``tests/golden``.
+
+Then renders every route at full size, each frame checked to launch its
+route's kernel and no other: the ``bench`` preset (cornell_mesh, K1; its
+image also against the BVH walk's) and the same scene through K4;
+``config2`` and ``config3`` (K4); ``config5`` (big_mesh, 2M triangles, its
+native BVH and the stream route's cluster table checked by
+check_invariants and check_cluster_invariants; the grid route, K2 and the
+DDA window kernel) and the same scene through K4 and through the stream
+route (K3, within its time limit), the grid's and the stream's frames also
+against the same-seed frame through K4, and the grid profile of the bench
+band's three passes on the config-5 scene with its profiler split of K2
+against its glue (``grid_profile.py --trace``). Then a value-and-grad step
+of the full bench frame through K1 and through K4 (the loss bit-equal to
+the forward frame's); material gradients against central differences; the
+check suite (``checks.py --full``: K1-K4 against brute force, the BVH walk
+and each other, the engine against the port's oracle on config 1,
+cornell_sphlight with and without MIS and the furnace, and a
+value-and-grad step against the oracle's finite differences); the sharded
+path (``parallel/mesh.py``) in child processes: over two gloo ranks that
+share the card, the full bench frame (K1) and the full config-5 frame
+(K2), each bit-equal to the single-process frame, the bench frame's
+sharded loss and grads against ``pt.grad_render`` and two train steps with
+the materials bit-identical on both ranks; over one NCCL rank that
+``torchrun`` starts and that joins through ``initialize_distributed``, the
+bench frame and a train step; and the front end in this process through
+``cli.main``: config 3 with a checkpoint resumed (equal to ``pt.render``),
+the bench frame to a PNG (K1 only) and five fit steps on the bench frame
+(a falling loss). Every phase either passes or raises; the last line of
+standard output is ``{"ok": true, "device": {...}}`` only when all passed,
+after the ``kernels`` line. There is no CPU path: without a CUDA device
+the script fails at once.
 """
 
 from __future__ import annotations
@@ -64,7 +66,6 @@ import json
 import math
 import os
 import re
-import statistics
 import struct
 import subprocess
 import sys
@@ -98,7 +99,7 @@ from pathtracer_tpu_torch.ops import intersect_stream as st
 from pathtracer_tpu_torch.ops import traverse_bvh as tb
 from pathtracer_tpu_torch.ops import visit_probe as vp
 from pathtracer_tpu_torch.parallel import mesh as pmesh
-from pathtracer_tpu_torch.parallel.scaling import spawn_ranks
+from pathtracer_tpu_torch.parallel.mesh import spawn_ranks
 # The bars the checks share: the reference's intersection t bar, material
 # agreement, and its engine bar of one route against another (a pixel is
 # bad where a channel differs by more than ENGINE_BAR + ENGINE_BAR * |ref|,
@@ -213,25 +214,19 @@ SPLIT_PLAIN_RTOL, SPLIT_PLAIN_ATOL = 0.0, 2e-6
 SPLIT_RTOL, SPLIT_ATOL = 1e-4, 1e-5  # K6/K7 vs the f32 result: the split
 SPLIT_FLOOR = 1e-6  # ... which must show: full-width max |K6/K7 - K5|
 PROBE_PAD_ROWS = vp.FEAT_ROWS  # bench rays: 11 feature rows padded to 16
-GRAD_STEPS = 3  # timed value-and-grad steps (median), after a warm-up
 FD_EPS = 2e-3  # tests/grad/test_grad.py's central-difference step
 FD_SIDE = 256  # the bench frame's side for the FD cases
 FRONT_DIR = os.path.join(ROOT, "build", "front_end")  # the CLI's files
-FRONT_BENCH_BUDGET = 10  # seconds of timed frames per bench_torch.py run
 FIT_STEPS = 5
 RESUME_ATOL = 1e-6  # resumed and pt.render images against the CLI's
 DIST_TIMEOUT_S = 300.0  # each group of ranks in [dist]: start, builds, frames
-DIST_FRAMES = 3  # timed frames per path in [dist], after the checked one
-# [dist] (c): the scaling script through torchrun, one rank (NCCL).
-SCALING_CMD = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc_per_node", "1", "-m",
-               "pathtracer_tpu_torch.parallel.scaling", "--scene",
-               "cornell_mesh", "--budget", "10"]
-SCALING_TIMEOUT_S = 240
-SHARING = "2 ranks share one card: overhead, not scaling"
+# [dist] (b): one rank started by torchrun, as a multi-host run starts each.
+DIST_TORCHRUN_CMD = [sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc_per_node", "1", "--no-python",
+                     sys.executable, "-c",
+                     "import chip_smoke; chip_smoke.dist_nccl_rank()"]
 # The reference's sharded-vs-single bars (tests/dist/test_sharding.py).
 DIST_LOSS_RTOL, DIST_GRAD_RTOL, DIST_GRAD_ATOL = 1e-5, 1e-4, 1e-7
-ROOFLINE_REPS = 6  # [roofline]: best of this many timed batches per pass
 # [max_leaf]: K4 on cornell_mesh's BVH built with leaves of up to m
 # triangles, on the bench frame's bounce-0 rays and this many random rays
 # inside the box, against brute force taken this many rays at a time.
@@ -1098,7 +1093,7 @@ def frame_args(scene, cfg, device):
             ids, 0)
 
 
-def phase_main_path(scene, device, card: str) -> int:
+def phase_main_path(scene, device) -> int:
     cfg = pt.PRESETS["bench"]
     reset_launches()
     img = pt.render(scene, cfg)
@@ -1118,7 +1113,7 @@ def phase_main_path(scene, device, card: str) -> int:
     # product's effect on the main path's image.
     check_against_k4("bench via K1", scene, cfg, img)
 
-    time_frames("bench", frame_args(scene, cfg, device), 5, card)
+    route_frame("bench", frame_args(scene, cfg, device), "cluster_hit")
     return counts["cluster_hit"]
 
 
@@ -1207,35 +1202,20 @@ def check_against_k4(name, scene, cfg, img) -> None:
           f"{bad}")
 
 
-def time_frames(name, args, n_frames, card, kernel=None) -> None:
-    """Median useful rays/s of n_frames trace_sample(with_stats=True) runs
-    (after one warm-up run), each bracketed by synchronize(); peak memory.
-    With `kernel`, the timed frames must have launched it and no other."""
-    wavefront.trace_sample(*args, with_stats=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def route_frame(name, args, kernel) -> None:
+    """One trace_sample(*args, with_stats=True): it launches `kernel` (a
+    name, or a tuple of names) and no other route's kernel."""
     reset_launches()
-    rates, secs = [], []
-    for _ in range(n_frames):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, n = wavefront.trace_sample(*args, with_stats=True)
-        n = int(n)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        secs.append(dt)
-        rates.append(n / dt)
+    _, n = wavefront.trace_sample(*args, with_stats=True)
+    n = int(n)
+    torch.cuda.synchronize()
     counts = launches()
-    if kernel is not None:
-        check_only(name, counts, kernel)
+    check_only(name, counts, kernel)
     print(f"[main] trace_sample({name}, tiled, with_stats): {n} useful "
-          f"rays, frame s {[round(x, 6) for x in secs]}, median "
-          f"{statistics.median(rates):.1f} useful rays/s, peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
-          f"launches {counts} on {card}")
+          f"rays, launches {counts}")
 
 
-def phase_bvh_presets(device, card: str) -> int:
+def phase_bvh_presets(device) -> int:
     """config2 and config3 as they stand, through the BVH walk (K4 only);
     returns config3's K4 launches."""
     for name in ("config2", "config3"):
@@ -1344,7 +1324,7 @@ def grid_stats_frame(args):
     return infos
 
 
-def phase_config5(scene, device, card: str) -> int:
+def phase_config5(scene, device) -> int:
     cfg = pt.PRESETS["config5"]
     reset_launches()
     t0 = time.perf_counter()
@@ -1370,7 +1350,7 @@ def phase_config5(scene, device, card: str) -> int:
         check(info["dda_launches"] == info["eras"] + 1, f"config5 query "
               f"{i}: {info['dda_launches']} DDA launches, expected one per "
               f"phase ({info['eras'] + 1})")
-    time_frames("config5", args, 3, card, GRID)
+    route_frame("config5", args, GRID)
     return counts["pair_hit"], counts["grid_dda"]
 
 
@@ -1690,25 +1670,12 @@ def grad_step(scene, cfg, ids):
     return loss, int(stats["n"]), grads
 
 
-def synced_seconds(fn, n) -> list:
-    out = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append(time.perf_counter() - t0)
-    return out
-
-
-def phase_grad(scene, device, card) -> None:
+def phase_grad(scene, device) -> None:
     """A value-and-grad step of the full bench frame, through K1 and
     through K4: the loss equals the forward frame's bit for bit, the step
     launches only its route's kernel, 2 per bounce (no recompute at 1 spp),
     the grads are finite, non-zero for every albedo the camera sees, and
-    no geometry table takes a gradient even as a leaf that requires one.
-    Prints the median step seconds, grad and forward rays/s of the same
-    call, and the step's peak memory."""
+    no geometry table takes a gradient even as a leaf that requires one."""
     for backend, kernel in (("cluster", "cluster_hit"), ("jnp", "bvh_hit")):
         cfg = pt.PRESETS["bench"].replace(backend=backend)
         ids = tiled_pixel_ids(0, cfg.n_pixels, cfg.width, device=device)
@@ -1734,27 +1701,13 @@ def phase_grad(scene, device, card) -> None:
         check(not zero, f"grad {backend}: seen materials {zero} have zero "
               "albedo grads")
         geometry_gets_no_grad(scene, cfg)
-        torch.cuda.reset_peak_memory_stats()
-        steps = synced_seconds(lambda: grad_step(scene, cfg, ids), GRAD_STEPS)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        with torch.inference_mode():
-            fwd = synced_seconds(
-                lambda: wavefront.trace_sample(*frame_args(scene, cfg,
-                                                           device)),
-                GRAD_STEPS)
-        step_s, fwd_s = statistics.median(steps), statistics.median(fwd)
         print(f"[grad] bench backend={backend} ({kernel}) {cfg.width}x"
               f"{cfg.height} depth {cfg.max_depth}: loss {loss.item()!r} "
               f"bit-equal to the forward frame's, launches {counts}, seen "
               f"materials {seen} all with non-zero albedo grads, no geometry "
               f"table took a gradient, albedo grad abs sum "
               f"{grads.albedo.abs().sum().item():.6g}, emission "
-              f"{grads.emission.abs().sum().item():.6g}; step s "
-              f"{[round(x, 6) for x in steps]}, median {step_s:.6f} s, "
-              f"{n / step_s:.1f} grad rays/s vs forward {n / fwd_s:.1f} "
-              f"useful rays/s (frame {fwd_s:.6f} s, ratio "
-              f"{step_s / fwd_s:.3f}), {n} useful rays, peak device memory "
-              f"{peak:.3f} GiB on {card}")
+              f"{grads.emission.abs().sum().item():.6g}, {n} useful rays")
 
 
 def fd_grad(scene, cfg, field, idx, ch) -> float:
@@ -1826,10 +1779,9 @@ def phase_grad_fd(bench, device) -> None:
 
 
 def run_cli(argv) -> list:
-    """cli.main(argv) in this process, with standard output and error (a
-    forwarded bench_torch.py run's included) captured at the file
-    descriptors and echoed as [front] lines; fails on a non-zero exit.
-    Returns [stdout, stderr]."""
+    """cli.main(argv) in this process, with standard output and error
+    captured at the file descriptors and echoed as [front] lines; fails on
+    a non-zero exit. Returns [stdout, stderr]."""
     sys.stdout.flush()
     sys.stderr.flush()
     files = [open(os.path.join(FRONT_DIR, f"cli.{fd}.txt"), "w+")
@@ -1928,27 +1880,11 @@ def front_render_bench(card) -> None:
 
 def front_fit(card) -> None:
     """FIT_STEPS fit steps on the full bench frame from the perturbed
-    albedo: finite losses, the last below the first; only K1. Each step's
-    loss_and_grad is timed between synchronisations."""
+    albedo: finite losses, the last below the first; only K1."""
     cfg = pt.PRESETS["bench"]
-    steps = []
-    loss_and_grad = dr.loss_and_grad
-
-    def timed(*args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = loss_and_grad(*args, **kw)
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t0)
-        return out
-
     reset_launches()
-    dr.loss_and_grad = timed
-    try:
-        out, _ = run_cli(["fit", "--preset", "bench", "--steps",
-                          str(FIT_STEPS), "--perturb"])
-    finally:
-        dr.loss_and_grad = loss_and_grad
+    out, _ = run_cli(["fit", "--preset", "bench", "--steps",
+                      str(FIT_STEPS), "--perturb"])
     counts = launches()
     check_only("cli fit bench", counts, "cluster_hit")
     # The target, every step's forward pass and the final image.
@@ -1959,55 +1895,23 @@ def front_fit(card) -> None:
               re.findall(r"^step +\d+  loss (\S+)$", out, re.M)]
     print(f"[front] cli fit --preset bench --steps {FIT_STEPS} --perturb "
           f"({cfg.width}x{cfg.height}, depth {cfg.max_depth}): losses "
-          f"{losses}, step s {[round(s, 6) for s in steps]}, median "
-          f"{statistics.median(steps):.6f} s per step, launches {counts} on "
-          f"{card}")
-    check(len(losses) == FIT_STEPS and len(steps) == FIT_STEPS,
-          f"cli fit: {len(losses)} losses, {len(steps)} steps")
+          f"{losses}, launches {counts} on {card}")
+    check(len(losses) == FIT_STEPS, f"cli fit: {len(losses)} losses")
     check(all(math.isfinite(x) for x in losses), "cli fit: finite losses")
     check(losses[-1] < losses[0], f"cli fit: loss {losses[0]} -> "
           f"{losses[-1]} did not fall")
 
 
-def front_bench(card) -> float:
-    """bench_torch.py through the CLI's forwarding: the bench frame
-    forward, as value-and-grad steps, and through K4. Returns the forward
-    rays/s."""
-    values = []
-    for extra in ([], ["--grad"], ["--backend", "jnp"]):
-        out, err = run_cli(["bench", "--budget", str(FRONT_BENCH_BUDGET),
-                            *extra])
-        row = json.loads(out.strip().splitlines()[-1])
-        check(set(row) == {"metric", "value", "unit", "vs_baseline"},
-              f"bench {extra}: the last line's keys {sorted(row)}")
-        check(row["value"] > 0, f"bench {extra}: value {row['value']}")
-        measured = [line for line in err.splitlines()
-                    if "bench measured" in line]
-        check(len(measured) == 1, f"bench {extra}: one measured line")
-        stats = dict(re.findall(r"(\w+)=(\S+)", measured[0]))
-        print(f"[front] bench {' '.join(extra) or '(forward)'}: "
-              f"{row['value']} {row['unit']} ({row['metric']}), "
-              f"{stats['frames']} frames in {stats['secs']} s, per-frame "
-              f"rays/s median {stats['frame_rays_per_s_median']} min "
-              f"{stats['frame_rays_per_s_min']} max "
-              f"{stats['frame_rays_per_s_max']} on {card}")
-        values.append(row["value"])
-    return values[0]
-
-
-def phase_front_end(device, card) -> float:
+def phase_front_end(device, card) -> None:
     """The front end on the card, in this process through cli.main: config
-    3 with its checkpoint round trip, the bench frame to a PNG, a fit on
-    the bench frame, and three bench_torch.py runs. Returns bench_torch.py's
-    forward rays/s."""
+    3 with its checkpoint round trip, the bench frame to a PNG and a fit on
+    the bench frame."""
     os.makedirs(FRONT_DIR, exist_ok=True)
     t0 = time.perf_counter()
     front_render_config3(device, card)
     front_render_bench(card)
     front_fit(card)
-    forward = front_bench(card)
     print(f"[front] phase: {time.perf_counter() - t0:.1f} s")
-    return forward
 
 
 def on_rank0(mesh, fn):
@@ -2028,15 +1932,10 @@ def rank_label(mesh) -> str:
             f"({dist.get_backend(mesh.group)})")
 
 
-def seconds_text(secs) -> str:
-    return (f"s {[round(x, 6) for x in secs]}, median "
-            f"{statistics.median(secs):.6f}")
-
-
 def dist_frame(what, scene, cfg, mesh, kernel, n_launches=None) -> list:
     """render_sharded of the full frame: this rank launches only `kernel`
     (n_launches times, where given), and on rank 0 the image equals
-    pt.render's bit for bit; then DIST_FRAMES timed frames of each."""
+    pt.render's bit for bit."""
     reset_launches()
     img = pmesh.render_sharded(scene, cfg, mesh)
     torch.cuda.synchronize()
@@ -2046,48 +1945,32 @@ def dist_frame(what, scene, cfg, mesh, kernel, n_launches=None) -> list:
         check(counts[kernel] == n_launches, f"{what} sharded, rank "
               f"{mesh.rank}: {counts[kernel]} launches, expected "
               f"{n_launches}")
-    sharded = synced_seconds(lambda: pmesh.render_sharded(scene, cfg, mesh),
-                             DIST_FRAMES)
 
     def single():
         ref = pt.render(scene, cfg, device=mesh.device)
         diff = (img - ref).abs().max().item()
         check(torch.equal(img, ref), f"{what}: the sharded frame differs "
               f"from pt.render's (max abs diff {diff})")
-        secs = synced_seconds(lambda: pt.render(scene, cfg,
-                                                device=mesh.device),
-                              DIST_FRAMES)
-        return (f"; bit-equal to pt.render, whose frame {seconds_text(secs)}"
-                f" ({SHARING if mesh.size > 1 else 'one rank'})")
+        return "; bit-equal to pt.render"
 
     return [f"{rank_label(mesh)}: {what} {cfg.width}x{cfg.height} depth "
             f"{cfg.max_depth}: launches {counts}, mean "
-            f"{img.mean().item():.6f}; sharded frame "
-            f"{seconds_text(sharded)}{on_rank0(mesh, single) or ''}"]
+            f"{img.mean().item():.6f}{on_rank0(mesh, single) or ''}"]
 
 
 def dist_grads(scene, cfg, mesh, target) -> list:
     """loss_and_grad_sharded of the full frame against pt.grad_render with
-    the same target, at the reference's sharded bars (on rank 0); then
-    DIST_FRAMES timed calls of each."""
-
-    def sharded():
-        return pmesh.loss_and_grad_sharded(scene, cfg, scene.materials,
-                                           target, mesh)
-
-    def single_step():
-        return pt.grad_render(scene, cfg, target=target, device=mesh.device)
-
+    the same target, at the reference's sharded bars (on rank 0)."""
     reset_launches()
-    loss, g = sharded()
+    loss, g = pmesh.loss_and_grad_sharded(scene, cfg, scene.materials,
+                                          target, mesh)
     torch.cuda.synchronize()
     counts = launches()
     check_only(f"sharded grads, rank {mesh.rank}", counts, "cluster_hit")
-    secs = synced_seconds(sharded, DIST_FRAMES)
 
     def single():
-        loss1, g1 = single_step()
-        secs1 = synced_seconds(single_step, DIST_FRAMES)
+        loss1, g1 = pt.grad_render(scene, cfg, target=target,
+                                   device=mesh.device)
         check(close(loss, loss1, DIST_LOSS_RTOL, 0.0), f"sharded loss "
               f"{loss.item()!r} vs pt.grad_render's {loss1.item()!r}")
         for field in ("albedo", "emission"):
@@ -2098,15 +1981,14 @@ def dist_grads(scene, cfg, mesh, target) -> list:
                   f"sharded {field} grads vs pt.grad_render's: max abs "
                   f"diff {(a - b).abs().max().item()}")
         check(bool((g.emission != 0).any()), "sharded emission grads are 0")
-        return (f"; pt.grad_render {seconds_text(secs1)}, loss "
-                f"{loss1.item()!r}, "
+        return (f"; pt.grad_render loss {loss1.item()!r}, "
                 f"grads within rtol {DIST_GRAD_RTOL} / atol "
                 f"{DIST_GRAD_ATOL} (max abs diff albedo "
                 f"{(g.albedo - g1.albedo).abs().max().item():.3g}, emission "
                 f"{(g.emission - g1.emission).abs().max().item():.3g})")
 
     return [f"{rank_label(mesh)}: loss_and_grad_sharded bench: loss "
-            f"{loss.item()!r}, launches {counts}, {seconds_text(secs)}"
+            f"{loss.item()!r}, launches {counts}"
             f"{on_rank0(mesh, single) or ''}"]
 
 
@@ -2114,14 +1996,11 @@ def dist_train(scene, cfg, mesh, target, n_steps) -> list:
     """n_steps of make_train_step: finite losses, falling over two or
     more steps; the materials bit-identical on every rank."""
     step = pmesh.make_train_step(scene, cfg, target, mesh)
-    mats, losses, secs = scene.materials, [], []
+    mats, losses = scene.materials, []
     reset_launches()
     for _ in range(n_steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         loss, mats = step(mats)
         losses.append(loss.item())
-        secs.append(time.perf_counter() - t0)
     counts = launches()
     check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
     check(n_steps < 2 or losses[-1] < losses[0], f"train loss {losses} did "
@@ -2131,8 +2010,8 @@ def dist_train(scene, cfg, mesh, target, n_steps) -> list:
     check(all(torch.equal(every[0], x) for x in every),
           "the materials differ across ranks after the train steps")
     return [f"{rank_label(mesh)}: make_train_step bench x{n_steps}: losses "
-            f"{losses}, step {seconds_text(secs)}, launches {counts}; "
-            f"materials bit-identical on all {mesh.size} ranks"]
+            f"{losses}, launches {counts}; materials bit-identical on all "
+            f"{mesh.size} ranks"]
 
 
 def dist_gloo_rank(rank) -> list:
@@ -2158,64 +2037,50 @@ def dist_gloo_rank(rank) -> list:
     return lines
 
 
-def dist_nccl_rank(rank) -> list:
-    """[dist] (b), one NCCL rank: the bench frame against pt.render and
-    one train step."""
+def dist_nccl_rank() -> None:
+    """[dist] (b), the one rank that torchrun starts: joins the group as a
+    multi-host process does (initialize_distributed with no arguments, its
+    env:// branch; NCCL on the card), then the bench frame against
+    pt.render and one train step. Prints its lines."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = pmesh.make_mesh()
-    cfg = pt.PRESETS["bench"]
-    bench = bench_scene(cfg, mesh.device)
-    target = torch.zeros((cfg.height, cfg.width, 3), device=mesh.device)
-    return (dist_frame("bench (K1)", bench, cfg, mesh, "cluster_hit",
-                       2 * cfg.max_depth)
-            + dist_train(bench, cfg, mesh, target, 1))
+    pmesh.initialize_distributed()
+    try:
+        check(dist.is_initialized() and dist.get_backend() == "nccl",
+              "initialize_distributed under torchrun formed no NCCL group")
+        mesh = pmesh.make_mesh()
+        cfg = pt.PRESETS["bench"]
+        bench = bench_scene(cfg, mesh.device)
+        target = torch.zeros((cfg.height, cfg.width, 3), device=mesh.device)
+        lines = (dist_frame("bench (K1)", bench, cfg, mesh, "cluster_hit",
+                            2 * cfg.max_depth)
+                 + dist_train(bench, cfg, mesh, target, 1))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for line in lines:
+        print(line)
 
 
-def phase_dist(card) -> float:
+def phase_dist() -> None:
     """Sharded rendering and training on the card: (a) two gloo ranks that
-    share it, (b) one NCCL rank, (c) the scaling script through torchrun.
-    A rank that fails or outlives DIST_TIMEOUT_S fails the phase. Returns
-    the scaling script's rays/s."""
+    share it, (b) one NCCL rank under torchrun. A rank that fails or
+    outlives DIST_TIMEOUT_S fails the phase."""
     t0 = time.perf_counter()
     for lines in spawn_ranks(dist_gloo_rank, 2, timeout=DIST_TIMEOUT_S):
         for line in lines:
             print(line)
-    for line in spawn_ranks(dist_nccl_rank, 1, backend="nccl",
-                            timeout=DIST_TIMEOUT_S)[0]:
+    out = subprocess.run(DIST_TORCHRUN_CMD, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": ROOT},
+                         capture_output=True, text=True,
+                         timeout=DIST_TIMEOUT_S)
+    for line in out.stdout.splitlines():
         print(line)
-    env = {**os.environ, "PYTHONPATH": ROOT}
-    t1 = time.perf_counter()
-    out = subprocess.run(SCALING_CMD, cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=SCALING_TIMEOUT_S)
-    for name, text in (("out", out.stdout), ("err", out.stderr)):
-        for line in text.splitlines():
-            print(f"[dist]   {name}: {line}")
-    check(out.returncode == 0, f"scaling script: exit {out.returncode}")
-    row = json.loads(out.stdout.strip().splitlines()[-1])
-    check(set(row) == {"metric", "value", "unit", "scaling_eff"}
-          and row["value"] > 0, f"scaling script: last line {row}")
-    print(f"[dist] torchrun --nproc_per_node 1 scaling.py: {row['value']} "
-          f"{row['unit']} ({row['metric']}), {time.perf_counter() - t1:.1f} "
-          f"s in all, on {card}")
+    for line in out.stderr.splitlines():
+        print(f"[dist]   err: {line}")
+    check(out.returncode == 0, f"torchrun NCCL rank: exit {out.returncode}")
+    check("bit-equal to pt.render" in out.stdout and "make_train_step"
+          in out.stdout, "torchrun NCCL rank: its checks did not all print")
     print(f"[dist] phase: {time.perf_counter() - t0:.1f} s")
-    return row["value"]
-
-
-def phase_roofline(bench, device) -> None:
-    """K1's roofline over the bench band's three passes (roofline.py) at
-    the reference's rays per call, on the bench scene: only K1."""
-    t0 = time.perf_counter()
-    reset_launches()
-    rows = roofline.run(bench, pt.PRESETS["bench"], roofline.DEFAULT_RAYS,
-                        ROOFLINE_REPS, device)
-    counts = launches()
-    check_only("roofline", counts, "cluster_hit")
-    for r in rows:
-        check(r["kernel_ms"] > 0 and r["bound_ms"] > 0
-              and math.isfinite(r["tflops"]) and r["live"] > 0,
-              f"roofline {r['pass']}: {r}")
-    print(f"[roofline] phase: {time.perf_counter() - t0:.1f} s, launches "
-          f"{counts}")
 
 
 def phase_grid_profile(scene, device) -> None:
@@ -2294,27 +2159,26 @@ def main() -> int:
                            c3.n_pixels, device, k4)
         phase_max_leaf(device, card)
         phase_goldens(device)
-        k1_launches = phase_main_path(bench, device, card)
+        k1_launches = phase_main_path(bench, device)
         sampler_launches, sampler = phase_sampler_vs_plain(bench, device)
         phase_k1_frame(bench, device, card)
-        phase_roofline(bench, device)
         bench_k4 = pt.PRESETS["bench"].replace(backend="jnp")
-        time_frames("bench backend=jnp", frame_args(bench, bench_k4, device),
-                    5, card, "bvh_hit")
+        route_frame("bench backend=jnp", frame_args(bench, bench_k4, device),
+                    "bvh_hit")
         del bench
-        k4_launches = phase_bvh_presets(device, card)
+        k4_launches = phase_bvh_presets(device)
 
         c5 = pt.PRESETS["config5"]
         host = config5_host_scene(c5)
         scene = config5_scene(host, c5, device)
         k2 = phase_pair_vs_plain(scene, c5, device)
-        k2_launches, dda_launches = phase_config5(scene, device, card)
+        k2_launches, dda_launches = phase_config5(scene, device)
         dda = phase_dda_vs_plain(scene, c5, device)
         c5_k4 = c5.replace(backend="jnp")
         phase_bvh_vs_plain("config5", scene, c5_k4, BVH_CHECK_PIXELS_C5,
                            device, k4, depth=2)
-        time_frames("config5 backend=jnp", frame_args(scene, c5_k4, device),
-                    3, card, "bvh_hit")
+        route_frame("config5 backend=jnp", frame_args(scene, c5_k4, device),
+                    "bvh_hit")
         phase_grid_profile(scene, device)
         del scene
         torch.cuda.empty_cache()
@@ -2328,16 +2192,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Gradients need tensors made outside inference mode: a new scene.
     bench = bench_scene(pt.PRESETS["bench"], device)
-    phase_grad(bench, device, card)
+    phase_grad(bench, device)
     phase_grad_fd(bench, device)
     del bench
     torch.cuda.empty_cache()
     phase_checks()
-    scaling = phase_dist(card)
-    forward = phase_front_end(device, card)
-    print(f"[dist] the scaling script's bench frame over 1 NCCL rank "
-          f"{scaling} rays/s beside bench_torch.py's forward {forward} "
-          f"rays/s (ratio {scaling / forward:.4f}) on {card}")
+    phase_dist()
+    phase_front_end(device, card)
     print(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
           f" s, the builds included")
     print(json.dumps({"kernels": [

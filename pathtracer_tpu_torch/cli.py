@@ -1,16 +1,16 @@
 """Command-line interface (the reference's ``cli.py``).
 
 Headless front end: render to PNG/npy, resume long renders from
-accumulator checkpoints, fit materials to a target image (inverse
-rendering), and bench. Every subcommand runs on the card unless given
-``--device cpu``; without a CUDA device, ``--device cuda`` (the default)
-exits with an error.
+accumulator checkpoints, and fit materials to a target image (inverse
+rendering). Every subcommand runs on the card unless given ``--device
+cpu``; without a CUDA device, ``--device cuda`` (the default) exits with
+an error. The port's benchmark is ``python3 ptbench/run.py --workload
+<cell>``.
 
     python -m pathtracer_tpu_torch.cli render --preset config3 --out img.png
     python -m pathtracer_tpu_torch.cli render --width 512 --spp 256 \
         --checkpoint ck.npz --checkpoint-every 64
     python -m pathtracer_tpu_torch.cli fit --target target.npy --steps 100
-    python -m pathtracer_tpu_torch.cli bench --budget 30 --grad
     python -m pathtracer_tpu_torch.cli render --device cpu --width 64 ...
 """
 
@@ -20,7 +20,6 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -257,22 +256,6 @@ def cmd_fit(args) -> int:
     return 0
 
 
-def cmd_bench(args) -> int:
-    """Forward the bench flags to bench_torch.py (one source of truth)."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cmd = [sys.executable, os.path.join(root, "bench_torch.py")]
-    for flag in ("smoke", "compact", "grad"):
-        if getattr(args, flag):
-            cmd.append(f"--{flag}")
-    for flag in ("scene", "width", "height", "depth", "spp", "backend",
-                 "budget"):
-        v = getattr(args, flag)
-        if v is not None:
-            cmd += [f"--{flag}", str(v)]
-    cmd += ["--device", str(args.device)]
-    return subprocess.call(cmd)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="pathtracer_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -303,21 +286,6 @@ def main(argv=None) -> int:
     pf.add_argument("--out", default=None)
     pf.add_argument("--fit-checkpoint", default=None)
     pf.set_defaults(fn=cmd_fit)
-
-    pb = sub.add_parser("bench", help="run the benchmark (bench_torch.py)")
-    _add_device_flag(pb)
-    pb.add_argument("--smoke", action="store_true")
-    pb.add_argument("--scene", default=None)
-    pb.add_argument("--width", type=int, default=None)
-    pb.add_argument("--height", type=int, default=None)
-    pb.add_argument("--depth", type=int, default=None)
-    pb.add_argument("--spp", type=int, default=None)
-    pb.add_argument("--backend", default=None, choices=BACKENDS)
-    pb.add_argument("--budget", type=float, default=None)
-    pb.add_argument("--compact", action="store_true")
-    pb.add_argument("--grad", action="store_true",
-                    help="time value-and-grad steps instead of frames")
-    pb.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     from . import _device

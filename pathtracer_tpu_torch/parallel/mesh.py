@@ -14,16 +14,25 @@ fixed seeds, whatever the number of ranks (tests/test_torch_dist.py).
 Multi-host use: every process calls `initialize_distributed` (under
 ``torchrun`` with no arguments), then `make_mesh`; each rank renders on
 ``cuda:{LOCAL_RANK % device_count}``. Without a process group the mesh
-has one rank and its collectives are identities.
+has one rank and its collectives are identities. `spawn_ranks` runs a
+function in n new processes of this host joined in one group (the tests'
+gloo ranks, chip_smoke.py's gloo ranks); chip_smoke.py's NCCL rank joins
+under torchrun through `initialize_distributed`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import queue as queue_mod
+import tempfile
+import time
+import traceback
+from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from ..cli import adam
 from ..config import RenderConfig
@@ -62,6 +71,77 @@ def initialize_distributed(coordinator: str | None = None,
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     dist.init_process_group(backend, init_method=init, **kw)
+
+
+def _rank_main(fn, rank, n_ranks, backend, init, timeout, results, args):
+    os.environ["LOCAL_RANK"] = str(rank)
+    try:
+        dist.init_process_group(backend, init_method=init,
+                                world_size=n_ranks, rank=rank,
+                                timeout=timedelta(seconds=timeout))
+        try:
+            value = fn(rank, *args)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    results.put((rank, True, value))
+
+
+def spawn_ranks(fn, n_ranks: int, args=(), backend: str = "gloo",
+                timeout: float = 120.0) -> list:
+    """Run fn(rank, *args) in n_ranks new processes of one host, joined in
+    one process group (a ``file://`` rendezvous in a fresh temporary
+    directory; LOCAL_RANK is the rank); returns their values in rank
+    order.
+
+    fn must be importable by name and return a picklable value holding no
+    tensors (numpy arrays, numbers, strings). Raises with the rank's
+    traceback when a rank fails, and when the ranks have not all returned
+    within `timeout` seconds; every rank still running then is killed.
+    """
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    deadline = time.monotonic() + timeout
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, rank, n_ranks, backend, init, timeout,
+                                   results, args))
+                 for rank in range(n_ranks)]
+        try:
+            for p in procs:
+                p.start()
+            values = {}
+            while len(values) < n_ranks:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"{n_ranks - len(values)} of {n_ranks} ranks did "
+                        f"not finish within {timeout} s")
+                try:
+                    rank, ok, value = results.get(timeout=min(left, 1.0))
+                except queue_mod.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in values and p.exitcode not in (None, 0)]
+                    if dead and results.empty():
+                        raise RuntimeError(
+                            f"ranks {dead} exited with codes "
+                            f"{[procs[r].exitcode for r in dead]}") from None
+                    continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} of {n_ranks} failed:\n"
+                                       f"{value}")
+                values[rank] = value
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1.0))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    return [values[r] for r in range(n_ranks)]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,24 +1,5 @@
-"""K1's roofline on the card over the bench band's real rays, and the bound
-arithmetic of every kernel (the counterpart of the reference's
-``scripts/roofline.py``).
-
-    python -m pathtracer_tpu_torch.roofline [--scene cornell_mesh]
-        [--rays 262144] [--reps 6]
-
-:func:`band_passes` rebuilds the bench band's three passes with the
-engine's own functions: the primary rays in tile order
-(engine/camera.py:tiled_pixel_ids); bounce 1, cosine-sampled from the
-primary hits (engine/shading.py:cosine_hemisphere) and sorted by the
-engine's coherence key (engine/wavefront.py:_coherence_key); and shadow 1,
-from the same sorted vertices towards a light sample
-(engine/shading.py:sample_light), each capped at its light's distance.
-For each pass the script records the cluster_hit call that
-closest_hit_cluster makes and prints K1's block and warp visits per block
-(its own per-block counts), the kernel's and the whole call's
-milliseconds (CUDA events, warm, the best of --reps batches of 10
-back-to-back calls), the tensor-core operations of the tests the warps
-computed, the achieved TFLOP/s and the bound. The card only: without CUDA
-it exits.
+"""The bound arithmetic of every kernel, and the bench band's passes (the
+counterpart of the reference's ``scripts/roofline.py``).
 
 The bound of a call is the larger of two times: the bytes it must move
 (each input read once, each output written once; of a cluster table only
@@ -28,26 +9,32 @@ operations are the split product's: per (ray, triangle) test 240 bf16
 tensor-core operations and 6 f32 ones in the epilogue, counted on the
 tests the warps computed (a warp visit that the box skip drops does no
 test). This module is the one home of that arithmetic: chip_smoke.py
-imports it.
+imports it for the bounds beside its checked kernel calls.
+
+:func:`band_passes` rebuilds the bench band's three passes with the
+engine's own functions: the primary rays in tile order
+(engine/camera.py:tiled_pixel_ids); bounce 1, cosine-sampled from the
+primary hits (engine/shading.py:cosine_hemisphere) and sorted by the
+engine's coherence key (engine/wavefront.py:_coherence_key); and shadow 1,
+from the same sorted vertices towards a light sample
+(engine/shading.py:sample_light), each capped at its light's distance.
+grid_profile.py times the grid query on them (:func:`best_ms`).
+
+K1's share of its roofline in a real frame is the benchmark's
+``k1_roofline_pct`` (``python3 ptbench/run.py --workload bench.render
+--trace 1``).
 """
 
 from __future__ import annotations
 
-import argparse
-
 import torch
 
 from . import constants as C
-from .accel.auto import prepare_accel
-from .accel.build import with_bvh
-from .config import PRESETS
 from .engine import wavefront
 from .engine.camera import camera_rays, tiled_pixel_ids
 from .engine.shading import cosine_hemisphere, dot3, norm3, sample_light
 from .ops import intersect_cluster as ic
 from .sampling import rng as rng_mod
-from .scene.builder import build_scene
-from .utils.profiling import card_line
 
 # The card's peak rates (NVIDIA's H100 SXM data sheet, dense): f32 on the
 # CUDA cores (an FMA counted as two), bf16 on the tensor cores, HBM.
@@ -91,7 +78,6 @@ OPS_PER_THREEFRY = 72
 # of the mantissa fill, and the subtraction of 1.0.
 OPS_PER_DRAW = 4
 DEFAULT_RAYS = 262144  # the reference's rays per call
-BATCH = 10  # back-to-back calls per timed batch of a pass
 
 
 def nbytes(*tensors) -> int:
@@ -239,117 +225,17 @@ def band_passes(scene, cfg, n_rays: int, device) -> list:
             ("shadow 1 (sorted, capped)", *query(wi, dist))]
 
 
-def cluster_call(g, o, d, t_max) -> tuple:
-    """The cluster_hit arguments closest_hit_cluster builds for (o, d,
-    t_max), recorded from one call."""
-    calls = []
-    real = ic.cluster_hit
-
-    def recording(*args):
-        calls.append(args)
-        return real(*args)
-
-    ic.cluster_hit = recording
-    try:
-        ic.closest_hit_cluster(g, o, d, t_max=t_max)
-    finally:
-        ic.cluster_hit = real
-    return calls[0]
-
-
-def best_ms(fn, reps: int, batch: int = 1) -> float:
-    """The least mean milliseconds of fn() over reps batches of `batch`
-    back-to-back runs (CUDA events around each batch), after one warm-up
-    run. A batch hides the host's launch time behind the runs before it,
-    which a single short call on an idle stream would count."""
+def best_ms(fn, reps: int) -> float:
+    """The least milliseconds of fn() over reps runs (CUDA events around
+    each), after one warm-up run."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(batch):
-            fn()
+        fn()
         stop.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / batch)
+        times.append(start.elapsed_time(stop))
     return min(times)
-
-
-def pass_roofline(g, o, d, t_max, reps: int) -> dict:
-    """K1 on one pass: its visits, times, operations and bound."""
-    args = cluster_call(g, o, d, t_max)
-    outs = ic.cluster_hit(*args)
-    visits, warp_visits = outs[2], outs[3]
-    n_bytes = k1_bytes(args, outs)
-    tests = warp_tests(warp_visits)
-    bound = new_bound()
-    add_split_bound(bound, n_bytes, tests)
-    kernel_ms = best_ms(lambda: ic.cluster_hit(*args), reps, BATCH)
-    return {
-        "rays": o.shape[0], "live": int((t_max > C.T_MIN).sum()),
-        "blocks": args[0].shape[0],
-        "visits_per_block": visits.double().mean().item(),
-        "warp_visits_per_block": warp_visits.double().mean().item(),
-        "tests": tests, "tc_ops": tests * TC_OPS_PER_TRI_TEST,
-        "kernel_ms": kernel_ms,
-        "call_ms": best_ms(lambda: ic.closest_hit_cluster(g, o, d,
-                                                          t_max=t_max),
-                           reps, BATCH),
-        "bytes": n_bytes, "bound_ms": bound["bound_ms"],
-        "bound_by": ("operations" if bound["ops_ms"] >= bound["bytes_ms"]
-                     else "bytes"),
-        "reference_work_ms": reference_work_ms(n_bytes, visits),
-    }
-
-
-def run(scene, cfg, n_rays: int, reps: int, device) -> list:
-    """Prints K1's roofline over the band's passes on `scene` (on the
-    card, with cluster tables); returns one dict per pass."""
-    g = scene.geometry
-    print(f"[roofline] scene={cfg.scene} clusters={g.cl_lo.shape[0]} "
-          f"rays/call={n_rays} reps={reps} on {card_line()}")
-    print(f"[roofline] {'pass':26s} {'live':>7} {'vis/blk':>8} "
-          f"{'warp/blk':>8} {'K1 ms':>8} {'call ms':>8} {'TC ops':>10} "
-          f"{'TFLOP/s':>8} {'%peak':>6} {'bound ms':>9} {'x bound':>8} "
-          f"{'ref-work ms':>11}")
-    rows = []
-    for name, o, d, t_max in band_passes(scene, cfg, n_rays, device):
-        r = pass_roofline(g, o, d, t_max, reps)
-        tflops = r["tc_ops"] / r["kernel_ms"] / 1e9
-        print(f"[roofline] {name:26s} {r['live']:7d} "
-              f"{r['visits_per_block']:8.3f} "
-              f"{r['warp_visits_per_block']:8.3f} {r['kernel_ms']:8.4f} "
-              f"{r['call_ms']:8.4f} {r['tc_ops']:10.4g} {tflops:8.3f} "
-              f"{100 * tflops * 1e12 / PEAK_BF16:5.2f}% "
-              f"{r['bound_ms']:9.4f} {r['kernel_ms'] / r['bound_ms']:8.2f} "
-              f"{r['reference_work_ms']:11.4f}  ({r['bound_by']}, "
-              f"{r['bytes'] / 1e6:.2f} MB)")
-        rows.append({"pass": name, "tflops": tflops, **r})
-    return rows
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        prog="python -m pathtracer_tpu_torch.roofline",
-        description="K1's roofline over the bench band's passes on the "
-                    "card.")
-    ap.add_argument("--scene", default="cornell_mesh")
-    ap.add_argument("--rays", type=int, default=DEFAULT_RAYS)
-    ap.add_argument("--reps", type=int, default=6)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("roofline measures the card: no CUDA device")
-    device = torch.device("cuda")
-    cfg = PRESETS["bench"].replace(scene=args.scene)
-    with torch.inference_mode():
-        scene = prepare_accel(with_bvh(build_scene(cfg.scene)), cfg)
-        if scene.geometry.cl_lo.shape[0] == 0:
-            raise SystemExit(f"{args.scene} is above the cluster route's "
-                             "bound: K1 does not run on it")
-        run(scene.to(device), cfg, args.rays, args.reps, device)
-    return 0
-
-
-if __name__ == "__main__":
-    raise SystemExit(main())

@@ -7,7 +7,8 @@ same render through both CLIs within tests/oracle/test_engine.py's bar
 (atol 5e-4, rtol 1e-3); a resumed render equal to a straight one (atol
 1e-6); a checkpoint written by either CLI resumed by the other; the same
 checkpoint and preview lines and the same fit losses from both; the fit's
-Adam against optax.adam; and no CUDA device, no run without --device cpu.
+Adam against optax.adam; no CUDA device, no run without --device cpu; and
+cli.main render and fit import neither JAX nor the reference package.
 """
 
 import os
@@ -239,14 +240,37 @@ def test_adam_matches_optax():
                                        rtol=1e-6, atol=2e-6)
 
 
-@pytest.mark.parametrize("cmd", ["render", "fit", "bench"])
+@pytest.mark.parametrize("cmd", ["render", "fit"])
 def test_no_cuda_device_exits_nonzero(cmd):
     """Without a CUDA device the default --device cuda refuses to run and
     names --device cpu; there is no fallback to the CPU."""
     assert not torch.cuda.is_available()
-    args = {"render": ["render", *SMALL], "fit": ["fit", *SMALL],
-            "bench": ["bench", "--smoke"]}[cmd]
+    args = {"render": ["render", *SMALL], "fit": ["fit", *SMALL]}[cmd]
     r = _run(args, device=None)
     assert r.returncode != 0
     assert "--device cpu" in r.stderr
     assert "wrote" not in r.stdout and "loss" not in r.stdout
+
+
+def test_front_end_imports_no_jax(tmp_path):
+    """cli.main render and fit on the CPU, with neither JAX nor the
+    reference package imported."""
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from pathtracer_tpu_torch import cli\n"
+        f"d = {str(tmp_path)!r}\n"
+        "small = ['--width', '8', '--height', '8', '--spp', '2', '--depth',"
+        " '1', '--scene', 'cornell_spheres', '--no-bvh', '--device', 'cpu']\n"
+        "assert cli.main(['render', *small, '--checkpoint', d + '/ck.npz',"
+        " '--out', d + '/o.png']) == 0\n"
+        "assert cli.main(['fit', *small, '--steps', '2', '--perturb']) == 0\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('pathtracer_tpu.') or m == 'pathtracer_tpu']\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"

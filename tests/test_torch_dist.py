@@ -1,7 +1,7 @@
 """The port's sharded rendering and training (parallel/mesh.py) against its
 single-process paths and against the reference's parallel/mesh.py.
 
-Ranks are CPU processes joined in a gloo group (scaling.spawn_ranks: a
+Ranks are CPU processes joined in a gloo group (mesh.spawn_ranks: a
 ``file://`` rendezvous, one thread each, a wall limit after which the
 ranks are killed and the test fails). Two groups run per module, of 2 and
 4 ranks; each renders every case once and the tests read the results.
@@ -19,10 +19,6 @@ tests/test_torch_diff.py's rtol 2e-3 / atol 1e-6 for grads.
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -39,12 +35,10 @@ from pathtracer_tpu.scene import builder as ref_builder
 import pathtracer_tpu_torch as pt
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.parallel import mesh as pmesh
-from pathtracer_tpu_torch.parallel.scaling import spawn_ranks
 from pathtracer_tpu_torch.scene.convert import scene_from_arrays
 
 torch.set_num_threads(2)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARTS = ("geometry", "materials", "camera", "lights")
 RANKS_TIMEOUT_S = 240.0  # one group of ranks: start, every case, exit
 LR = 1e-2
@@ -146,7 +140,7 @@ def sharded(scenes, train_target):
 
     def get(n_ranks):
         if n_ranks not in cache:
-            cache[n_ranks] = spawn_ranks(
+            cache[n_ranks] = pmesh.spawn_ranks(
                 _rank_work, n_ranks,
                 args=(_jobs(scenes, train_target, n_ranks),),
                 timeout=RANKS_TIMEOUT_S)
@@ -317,46 +311,3 @@ def test_one_rank_mesh_without_a_group(scenes, monkeypatch):
         pmesh.make_mesh()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pmesh.make_mesh(device="cuda")
-
-
-def test_scaling_script_smoke(tmp_path):
-    """The scaling script over 2 CPU gloo ranks prints its JSON line with
-    every spp sample's rays counted and writes no metrics row."""
-    rows = os.path.join(ROOT, "bench_metrics_torch.jsonl")
-    before = open(rows).read() if os.path.exists(rows) else None
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = ROOT
-    out = subprocess.run(
-        [sys.executable, "-m", "pathtracer_tpu_torch.parallel.scaling",
-         "--cpu-ranks", "2", "--scene", "cornell_spheres", "--width", "32",
-         "--height", "32", "--depth", "2", "--budget", "2",
-         "--single-chip-ref", "1000"],
-        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=180)
-    assert out.returncode == 0, out.stderr[-3000:]
-    row = json.loads(out.stdout.strip().splitlines()[-1])
-    assert set(row) == {"metric", "value", "unit", "scaling_eff"}
-    assert row["unit"] == "rays/s" and row["value"] > 0
-    assert row["scaling_eff"] == pytest.approx(row["value"] / 1000, rel=1e-3)
-    assert "2ranks" in row["metric"]
-    assert "rays_per_frame=" in out.stderr
-    after = open(rows).read() if os.path.exists(rows) else None
-    assert after == before
-
-
-def test_scaling_counts_every_spp_sample(scenes):
-    """frame_rays over a one-rank mesh at 2 spp is the sum of both
-    samples' useful rays (the reference's pod script counts sample 0
-    only)."""
-    from pathtracer_tpu_torch.engine.wavefront import trace_sample
-    from pathtracer_tpu_torch.parallel.scaling import frame_rays
-
-    name, cfg = RENDERS["brute"]
-    scene, cfg = scenes[name][1], RenderConfig(**cfg)
-    ids = torch.arange(cfg.n_pixels)
-    per_sample = [int(trace_sample(scene.geometry, scene.materials,
-                                   scene.camera, scene.lights, cfg, ids, s,
-                                   with_stats=True)[1])
-                  for s in range(cfg.spp)]
-    assert per_sample[0] != per_sample[1]
-    assert frame_rays(scene, cfg, pmesh.make_mesh(device="cpu")) \
-        == sum(per_sample)

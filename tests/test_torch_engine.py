@@ -13,16 +13,19 @@ import os
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from pathtracer_tpu.accel.auto import prepare_accel as ref_prepare_accel
 from pathtracer_tpu.accel.build import with_bvh as ref_with_bvh
 from pathtracer_tpu.accel.clusters import with_clusters as ref_with_clusters
 from pathtracer_tpu.config import RenderConfig as RefConfig
 from pathtracer_tpu.engine import wavefront as ref_wavefront
 from pathtracer_tpu.engine.camera import camera_rays as ref_camera_rays
 from pathtracer_tpu.engine.camera import tiled_pixel_ids as ref_tiled_ids
+from pathtracer_tpu.engine.wavefront import trace_sample as ref_trace_sample
 from pathtracer_tpu.sampling import rng as ref_rng
 from pathtracer_tpu.scene import builder as ref_builder
 from pathtracer_tpu_torch import render
@@ -118,6 +121,50 @@ def test_compact_equals_plain_bit_for_bit(small_mesh, backend):
     a = render(scene, cfg, device="cpu")
     b = render(scene, cfg.replace(compact=False), device="cpu")
     assert torch.equal(a, b)
+
+
+# The frame whose useful rays (the numerator of every benchmark cell's rate)
+# are held to the reference's on each route: name -> (backend, use_bvh).
+RAY_ROUTES = {"brute": ("jnp", False), "bvh": ("jnp", True),
+              "cluster": ("cluster", True), "grid": ("grid", True),
+              "stream": ("stream", True)}
+RAY_FRAME = dict(width=16, height=16, spp=2, max_depth=3,
+                 scene="cornell_mesh")
+
+
+@pytest.fixture(scope="module", params=list(RAY_ROUTES))
+def route_scene(request):
+    """cornell_mesh prepared for one route by the reference, the same
+    arrays carried into the port, and the frame's configs."""
+    backend, use_bvh = RAY_ROUTES[request.param]
+    cfg, ref_cfg = _both({**RAY_FRAME, "backend": backend,
+                          "use_bvh": use_bvh})
+    ref = ref_builder.cornell_mesh()
+    if use_bvh:
+        ref = ref_with_bvh(ref)
+    ref = ref_prepare_accel(ref, ref_cfg)
+    scene = _carry(ref)
+    assert wavefront._intersector(scene.geometry, cfg).impl \
+        == request.param
+    return ref, scene, cfg, ref_cfg
+
+
+@pytest.mark.parametrize("spp_idx", [0, 1])
+def test_useful_rays_equal_reference(route_scene, spp_idx):
+    """trace_sample(with_stats=True)'s useful rays (live path segments
+    plus candidate shadow rays) of a tile-ordered frame equal the
+    reference's count on the same route, exactly, for each spp sample."""
+    ref, scene, cfg, ref_cfg = route_scene
+    _, want = ref_trace_sample(
+        ref.geometry, ref.materials, ref.camera, ref.lights, ref_cfg,
+        ref_tiled_ids(0, ref_cfg.n_pixels, ref_cfg.width),
+        jnp.uint32(spp_idx), with_stats=True)
+    _, got = wavefront.trace_sample(
+        scene.geometry, scene.materials, scene.camera, scene.lights, cfg,
+        tiled_pixel_ids(0, cfg.n_pixels, cfg.width), spp_idx,
+        with_stats=True)
+    assert int(want) > cfg.n_pixels
+    assert int(got) == int(want)
 
 
 @pytest.mark.parametrize("scene_name,cfg", [
@@ -245,7 +292,6 @@ def test_port_imports_no_jax():
         "from pathtracer_tpu_torch.ops import visit_probe\n"
         "assert visit_probe.main(['split_pre', '--device', 'cpu']) == 0\n"
         "from pathtracer_tpu_torch.parallel import mesh as pmesh\n"
-        "from pathtracer_tpu_torch.parallel import scaling  # noqa: F401\n"
         "cfg = pt.PRESETS['bench'].replace(width=8, height=8)\n"
         "scene = prepare_accel(with_bvh(pt.build_scene(cfg.scene)), cfg)\n"
         "img = pmesh.render_sharded(scene, cfg, "

@@ -169,9 +169,8 @@ def test_span_frames_on_the_cpu(big_pair):
         assert spans["pt.read"][0] > 0 and spans["pt.grid.dda"][0] > 0
 
 
-@pytest.mark.parametrize("main", [checks.main, roofline.main,
-                                  grid_profile.main],
-                         ids=["checks", "roofline", "grid_profile"])
+@pytest.mark.parametrize("main", [checks.main, grid_profile.main],
+                         ids=["checks", "grid_profile"])
 def test_entry_points_need_the_card(main, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
