@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA sources (the cluster, pair, stream and BVH-walk
-kernels, the grid's DDA window kernel, the sampler's threefry kernel and
-the three visit-arithmetic probes) and the native BVH builder from the
+Builds the eight CUDA sources (the cluster, pair, stream and BVH-walk
+kernels, the grid's DDA window kernel, the sampler's threefry kernel, the
+cluster query's per-ray line cull kernel and the three visit-arithmetic
+probes) and the native BVH builder from the
 repository's sources, all at once, then checks the port on the card. It
 measures no frame rate: the port's benchmark is ``python3 ptbench/run.py
 --workload <cell>``.
@@ -21,8 +22,10 @@ against its mirror and at the reference's bar against the skip-link walk,
 on config 3's bounce-0 queries and config 5's bounce-0 and bounce-1 ones,
 and on cornell_mesh's BVH built with leaves of up to 4, 6 and 7 triangles,
 against brute force, with the bench frame through it; the sampler kernel
-bit for bit on every call of a bench frame; the DDA window kernel bit for
-bit on every DDA call of a config-5 frame. Runs the probe entry point and
+and the per-ray line cull kernel bit for bit on every call of a bench
+frame (the frame through the cull kernel bit-identical to the frame
+through the plain cull); the DDA window kernel bit for bit on every DDA
+call of a config-5 frame. Runs the probe entry point and
 renders the golden scenes through the cluster, grid, BVH and stream routes
 against ``tests/golden``.
 
@@ -123,6 +126,7 @@ from pathtracer_tpu_torch.roofline import (
     PEAK_INT32_ISSUE,
     add_bound,
     add_split_bound,
+    cull_work,
     k1_bytes,
     k4_bytes,
     nbytes,
@@ -135,7 +139,10 @@ from pathtracer_tpu_torch.roofline import (
 )
 from pathtracer_tpu_torch.sampling import rng as rng_mod
 from pathtracer_tpu_torch.scene import builder
-from pathtracer_tpu_torch.utils.profiling import card_line
+from pathtracer_tpu_torch.utils.profiling import (
+    card_line,
+    device_kernel_times,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -154,6 +161,10 @@ KERNELS = {
                 "pathtracer_tpu/ops/traverse_pallas.py:92", tb, "LAUNCHES"),
     "grid_dda": ("pathtracer_tpu_torch/ops/csrc/grid_dda.cu",
                  "none: jnp glue in the reference", ig, "DDA_LAUNCHES"),
+    "cluster_cull": ("pathtracer_tpu_torch/ops/csrc/cluster_cull.cu",
+                     "none: jnp glue in the reference "
+                     "(pathtracer_tpu/ops/intersect_cluster.py:476)", ic,
+                     "CULL_LAUNCHES"),
     "sampler": ("pathtracer_tpu_torch/ops/csrc/threefry.cu",
                 "none: jax.random threefry in the reference", rng_mod,
                 "SAMPLER_LAUNCHES"),
@@ -170,8 +181,13 @@ GRID = ("pair_hit", "grid_dda")  # the kernels of the grid route
 # Launched by every frame whatever the route: check_only does not count them
 # as another route's kernels.
 EVERY_FRAME = ("sampler",)
+# Launched beside a route's kernel: the cluster route's per-ray line cull,
+# one a query on a scene of 2 to 512 clusters (every cluster-routed scene
+# here). check_only expects them wherever it expects the kernel.
+ALONGSIDE = {"cluster_hit": ("cluster_cull",)}
 SOURCES = ("intersect_cluster", "intersect_pair", "intersect_stream",
-           "traverse_bvh", "visit_probe", "grid_dda", "threefry")
+           "traverse_bvh", "visit_probe", "grid_dda", "threefry",
+           "cluster_cull")
 CHECK_PIXELS = 256 * 1024  # rays per query in the kernel-vs-plain phases
 BVH_CHECK_PIXELS_C5 = 64 * 1024  # K4 vs plain on the config-5 scene
 # K1-K3 (the split product on the tensor cores) against their plain
@@ -234,6 +250,7 @@ LEAF_SIZES = (4, 6, 7)
 LEAF_RANDOM_RAYS = 65_536
 BRUTE_CHUNK = 8192
 GRID_PROFILE_REPS = 3  # [grid_profile]: best of this many timed calls
+TOP_OPERATIONS = 16  # the cluster query's device operations printed
 
 
 def check(cond: bool, what: str) -> None:
@@ -253,8 +270,10 @@ def launches() -> dict:
 
 def check_only(what: str, counts: dict, kernel) -> None:
     """The path launched `kernel` (a name, or a tuple of names: each of
-    them) and no other kernel but those of EVERY_FRAME."""
+    them) and those ALONGSIDE it, and no other kernel but those of
+    EVERY_FRAME."""
     names = (kernel,) if isinstance(kernel, str) else kernel
+    names += tuple(k for name in names for k in ALONGSIDE.get(name, ()))
     for name in names:
         check(counts[name] > 0, f"{what} never launched {name}")
     others = {k: n for k, n in counts.items()
@@ -1104,17 +1123,127 @@ def phase_main_path(scene, device) -> int:
     check(counts["cluster_hit"] == 2 * cfg.max_depth,
           f"{counts['cluster_hit']} kernel launches, expected "
           f"{2 * cfg.max_depth}")
+    check(counts["cluster_cull"] == 2 * cfg.max_depth,
+          f"{counts['cluster_cull']} cull kernel launches, expected "
+          f"{2 * cfg.max_depth}")
     check(counts["sampler"] == 1 + cfg.max_depth,
           f"{counts['sampler']} sampler launches, expected "
           f"{1 + cfg.max_depth}")
     print(f"[main] render(bench) {cfg.width}x{cfg.height} depth "
           f"{cfg.max_depth}: mean {mean:.6f}, launches {counts}")
+    # The same frame through the plain per-ray cull: the kernel's masks
+    # leave the image bit-identical.
+    kernel_mask = ic.ray_cluster_mask
+    ic.ray_cluster_mask = ic.ray_cluster_mask_plain
+    try:
+        reset_launches()
+        plain = pt.render(scene, cfg)
+        torch.cuda.synchronize()
+    finally:
+        ic.ray_cluster_mask = kernel_mask
+    check(launches()["cluster_cull"] == 0, "the plain cull launched the "
+          "cull kernel")
+    check(torch.equal(img, plain), "bench: the frame through the cull "
+          "kernel differs from the frame through the plain cull (max abs "
+          f"diff {(img - plain).abs().max().item()})")
+    print("[main] render(bench) through the cull kernel bit-identical to "
+          "the frame through the plain cull (ray_cluster_mask_plain)")
     # The same seed through the BVH walk (K4, the f32 product): the split
     # product's effect on the main path's image.
     check_against_k4("bench via K1", scene, cfg, img)
 
     route_frame("bench", frame_args(scene, cfg, device), "cluster_hit")
     return counts["cluster_hit"]
+
+
+def record_calls(module, name, args) -> list:
+    """(positional, keyword) arguments of each module.<name> call of one
+    trace_sample(*args), tensors cloned, in order."""
+    calls = []
+    real = getattr(module, name)
+
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def recording(*a, **kw):
+        calls.append((tuple(map(clone, a)),
+                      {k: clone(v) for k, v in kw.items()}))
+        return real(*a, **kw)
+
+    setattr(module, name, recording)
+    try:
+        wavefront.trace_sample(*args)
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
+def phase_cull_vs_plain(bench, device, card: str) -> tuple[int, dict]:
+    """The per-ray line cull kernel against its plain version on every
+    ray_cluster_mask call of one full bench frame: bit for bit, one launch
+    per call; each call timed with CUDA events beside the plain version and
+    its bound, the larger of its bytes and its f32 slab-test operations
+    (roofline.cull_work); the kernel's device time in one frame from the
+    profiler; and the cluster query's device time by operation over the
+    frame's 8 calls. Returns the kernel's launches in the frame and the
+    totals."""
+    cfg = pt.PRESETS["bench"]
+    args = frame_args(bench, cfg, device)
+    reset_launches()
+    calls = [a for a, _ in record_calls(ic, "ray_cluster_mask", args)]
+    frame_launches = launches()["cluster_cull"]
+    check(frame_launches == len(calls) == 2 * cfg.max_depth,
+          f"a bench frame made {len(calls)} cull calls and "
+          f"{frame_launches} launches, expected {2 * cfg.max_depth}")
+    out = new_totals()
+    per_call = []
+    for call in calls:
+        n0 = ic.CULL_LAUNCHES
+        got = ic.ray_cluster_mask(*call)
+        torch.cuda.synchronize()
+        check(ic.CULL_LAUNCHES == n0 + 1,
+              "ray_cluster_mask launched the kernel once")
+        want = ic.ray_cluster_mask_plain(*call)
+        n_rays, n_clusters = call[2].shape[0], call[0].shape[0]
+        check(torch.equal(got, want), f"cull on {n_rays} rays, "
+              f"{n_clusters} clusters: the kernel's mask differs from the "
+              "plain version's")
+        n_bytes, n_ops = cull_work(n_rays, n_clusters)
+        bound = add_bound(out, n_bytes, n_ops)
+        ms = cuda_ms(lambda: ic.ray_cluster_mask(*call), 20)
+        plain_ms = cuda_ms(lambda: ic.ray_cluster_mask_plain(*call), 2)
+        add_totals(out, ms, plain_ms, 0.0)
+        per_call.append(f"{ms:.4f} (kept {got.float().mean().item():.3f})")
+    by_name = device_kernel_times(lambda: wavefront.trace_sample(*args))
+    frame_ms = sum(ms for name, (ms, _) in by_name.items()
+                   if "cluster_cull" in name)
+    print(f"[kernel] cluster_cull bench frame: {len(calls)} calls of "
+          f"{calls[0][2].shape[0]} rays x {calls[0][0].shape[0]} clusters, "
+          f"every mask bit-equal to the plain version's; per call ms "
+          f"{per_call}; kernel {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms (f32 "
+          f"operations {out['ops_ms']:.4f}, bytes {out['bytes_ms']:.4f}) "
+          f"per frame (CUDA events); {frame_ms:.4f} ms of device time in one "
+          f"frame (profiler); {frame_launches} launches in one bench frame, "
+          f"on {card}")
+    queries = record_calls(ic, "closest_hit_cluster", args)
+
+    def query():
+        for a, kw in queries:
+            ic.closest_hit_cluster(*a, **kw)
+
+    wall_ms = cuda_ms(query, 3)
+    # Device operations only: the pt.* spans' annotations are no work.
+    ops = {name: v for name, v in device_kernel_times(query).items()
+           if not name.startswith("pt.")}
+    busy = sum(ms for ms, _ in ops.values())
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:TOP_OPERATIONS]
+    print(f"[kernel] cluster query, the bench frame's {len(queries)} calls: "
+          f"{wall_ms:.4f} ms (CUDA events), {busy:.4f} ms of device time "
+          f"in {sum(n for _, n in ops.values())} operations (profiler); by "
+          "operation: " + "; ".join(f"{name[:60]} {ms:.4f} ms x{n}"
+                                    for name, (ms, n) in top))
+    return frame_launches, out
 
 
 def record_sampler_calls(args):
@@ -2111,7 +2240,8 @@ def phase_checks() -> None:
     counts = launches()
     check(rc == 0, f"checks --full: exit {rc}")
     missing = [k for k in ("cluster_hit", "pair_hit", "stream_hit",
-                           "bvh_hit", "grid_dda") if counts[k] == 0]
+                           "bvh_hit", "grid_dda", "cluster_cull")
+               if counts[k] == 0]
     check(not missing, f"checks --full never launched {missing}")
     check(not any(counts[k] for k in PROBES), f"checks --full launched a "
           f"probe: {counts}")
@@ -2161,6 +2291,7 @@ def main() -> int:
         phase_goldens(device)
         k1_launches = phase_main_path(bench, device)
         sampler_launches, sampler = phase_sampler_vs_plain(bench, device)
+        cull_launches, cull = phase_cull_vs_plain(bench, device, card)
         phase_k1_frame(bench, device, card)
         bench_k4 = pt.PRESETS["bench"].replace(backend="jnp")
         route_frame("bench backend=jnp", frame_args(bench, bench_k4, device),
@@ -2203,6 +2334,7 @@ def main() -> int:
           f" s, the builds included")
     print(json.dumps({"kernels": [
         kernel_entry("cluster_hit", k1_launches, k1),
+        kernel_entry("cluster_cull", cull_launches, cull),
         kernel_entry("pair_hit", k2_launches, k2),
         kernel_entry("grid_dda", dda_launches, dda),
         kernel_entry("sampler", sampler_launches, sampler),

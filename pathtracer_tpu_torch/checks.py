@@ -59,6 +59,10 @@ With --full:
       and closest_hit_grid's t, normal and material on the frame's
       queries through the kernel equal to those through the plain DDA
       (dda_window_plain), with one DDA launch per phase.
+  [13] the per-ray line cull kernel (ray_cluster_mask): its (B, C) mask
+      bit-equal to ray_cluster_mask_plain's on 2^20 seeded rays with edge
+      cases (cull_rays) against the first C of 512 seeded boxes
+      (cull_boxes), C = 2, 64, 213 and 512, one launch per call.
 """
 
 from __future__ import annotations
@@ -108,11 +112,13 @@ FURNACE_ATOL = 1e-5
 # Launch counters: kernel -> (its wrapper's module, the module's counter).
 KERNELS = {"K1": (ic, "LAUNCHES"), "K2": (ig, "LAUNCHES"),
            "K3": (st, "LAUNCHES"), "K4": (tb, "LAUNCHES"),
-           "DDA": (ig, "DDA_LAUNCHES")}
+           "DDA": (ig, "DDA_LAUNCHES"), "CULL": (ic, "CULL_LAUNCHES")}
 # [12]'s seeded rays around grids of these axes over [DDA_LO, DDA_LO +
 # DDA_EXTENT].
 DDA_RAYS, DDA_AXES = 1 << 20, (4, 8, 16)
 DDA_LO, DDA_EXTENT = (-0.25, -0.5, 0.125), 1.5
+# [13]'s seeded rays, against the first C of cull_boxes' boxes.
+CULL_RAYS, CULL_CLUSTERS = 1 << 20, (2, 64, 213, 512)
 
 
 def furnace_scene(albedo: float) -> model.Scene:
@@ -548,6 +554,118 @@ def check_dda_kernel(ctx) -> tuple:
                 f"per phase")
 
 
+def cull_boxes(n_clusters: int, device, seed: int = 0):
+    """The first n_clusters of RAY_CULL_MAX_C seeded cluster boxes: corners
+    on a 1/64 lattice of the unit cube (so that an origin can lie exactly on
+    a face), edges of 1/64 to 19/64; box 1 holds the origin 0 of the
+    zero-work point rays. Returns (lo, hi), each (n_clusters, 3) f32."""
+    gen = torch.Generator().manual_seed(seed)
+    n = ic.RAY_CULL_MAX_C
+    lo = torch.floor(torch.rand((n, 3), generator=gen) * 56.0) / 64.0
+    hi = lo + torch.ceil(torch.rand((n, 3), generator=gen) * 18.0 + 1.0) \
+        / 64.0
+    lo[1], hi[1] = -1.0 / 64.0, 3.0 / 64.0
+    return lo[:n_clusters].to(device), hi[:n_clusters].to(device)
+
+
+def cull_rays(n: int, device, seed: int = 0):
+    """n seeded rays (n a multiple of RAY_BLOCK) for the per-ray line cull
+    against cull_boxes, in 512-ray blocks of four kinds in turn: coherent
+    (one origin and a narrow cone of directions a block, as camera rays),
+    scattered (as diffuse bounces), sparse (8 live rays among _pad_rays'
+    zero-work rays, o = 0, d = +z, t_max = T_MIN, so that the block's mask
+    is nearly each ray's own) and short (coherent, t_max below T_MIN, at
+    T_MIN or up to 0.05). In every block, among the first 64 rays:
+    direction components of 0, -0 and +-1e-21, axis-aligned rays and
+    origins exactly on box faces, as given and inflated. t_max is T_FAR
+    for half of the other rays. Returns (o, d, t_max) on `device`."""
+    L = ic.RAY_BLOCK
+    B = n // L
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    def unit(x):
+        return torch.nn.functional.normalize(x, dim=-1)
+
+    kind = torch.arange(B) % 4
+    o = rand(B, 1, 3) * 1.2 - 0.1 + torch.randn((B, L, 3), generator=gen) \
+        * 0.002
+    d = unit(unit(torch.randn((B, 1, 3), generator=gen))
+             + torch.randn((B, L, 3), generator=gen) * 0.05)
+    scattered = kind == 1
+    o[scattered] = rand(int(scattered.sum()), L, 3) * 1.2 - 0.1
+    d[scattered] = unit(torch.randn((int(scattered.sum()), L, 3),
+                                    generator=gen))
+    t_max = torch.where(rand(B, L) < 0.5, C.T_FAR, rand(B, L) * 1.5)
+    # Edge cases on lanes 0-63 of every block, by lane mod 8.
+    lane = torch.arange(64) % 8
+    e = d[:, :64]
+    e[:, lane == 1, 0] = 0.0
+    e[:, lane == 2, 1] = -0.0
+    e[:, lane == 3, 2] = 1e-21
+    e[:, lane == 4, 0] = -1e-21
+    e[:, lane == 4, 1] = 1e-21
+    e[:, lane == 5] = torch.tensor([0.0, 0.0, -1.0])
+    e[:, lane == 5, 0] = -0.0
+    # Origins on faces: a box (low indices likeliest, so that few boxes see
+    # them too), a point inside it, then one coordinate on a face.
+    face = (lane == 6) | (lane == 7)
+    k = int(face.sum()) * B
+    lo, hi = cull_boxes(ic.RAY_CULL_MAX_C, "cpu", seed)
+    lo_i, hi_i = ic._inflate(lo, hi)
+    box = torch.clamp((ic.RAY_CULL_MAX_C ** rand(k)).long() - 1, 0,
+                      ic.RAY_CULL_MAX_C - 1)
+    p = lo[box] + (hi[box] - lo[box]) * rand(k, 3)
+    axis = torch.randint(0, 3, (k,), generator=gen)
+    pick = torch.randint(0, 4, (k,), generator=gen)
+    planes = torch.stack([lo, hi, lo_i, hi_i])[pick, box, axis]
+    p[torch.arange(k), axis] = planes
+    o[:, :64][:, face] = p.view(B, -1, 3)
+    # Sparse blocks: lanes 8-511 are zero-work point rays.
+    sparse = kind == 2
+    o[sparse, 8:] = 0.0
+    d[sparse, 8:] = torch.tensor([0.0, 0.0, 1.0])
+    t_max[sparse, 8:] = C.T_MIN
+    # Short blocks: t_max of 0, half T_MIN, T_MIN and up to 0.05.
+    short = kind == 3
+    levels = torch.tensor([0.0, 0.5 * C.T_MIN, C.T_MIN, 0.05])
+    t_max[short] = levels[torch.randint(0, 4, (int(short.sum()), L),
+                                        generator=gen)] \
+        * torch.where(torch.arange(L) % 4 == 3, rand(L), 1.0)
+    return (o.reshape(n, 3).to(device), d.reshape(n, 3).to(device),
+            t_max.reshape(n).to(torch.float32).to(device))
+
+
+def cull_mismatches(o, d, t_max, lo, hi) -> dict:
+    """ray_cluster_mask against ray_cluster_mask_plain on the same inputs:
+    the blocks whose mask differs, the launches the call made, and the
+    clusters kept of all (block, cluster) pairs."""
+    n0 = ic.CULL_LAUNCHES
+    got = ic.ray_cluster_mask(lo, hi, o, d, t_max)
+    launches = ic.CULL_LAUNCHES - n0
+    want = ic.ray_cluster_mask_plain(lo, hi, o, d, t_max)
+    same = got.dtype == want.dtype and got.shape == want.shape
+    return {"differ": int((got != want).any(dim=1).sum()) if same
+            else want.shape[0], "launches": launches,
+            "kept": int(want.sum()), "pairs": want.numel()}
+
+
+def check_cull_kernel(ctx) -> tuple:
+    o, d, t_max = cull_rays(CULL_RAYS, ctx["device"])
+    ok, parts = True, []
+    for n in CULL_CLUSTERS:
+        got = cull_mismatches(o, d, t_max, *cull_boxes(n, ctx["device"]))
+        ok &= (got["differ"] == 0 and got["launches"] == 1
+               and 0 < got["kept"] < got["pairs"])
+        parts.append(f"C={n}: {got['differ']} blocks differ, "
+                     f"{got['launches']} launches, "
+                     f"{got['kept'] / got['pairs']:.4f} of pairs kept")
+    return ok, (f"ray_cluster_mask kernel vs plain on {CULL_RAYS} seeded "
+                f"rays: " + "; ".join(parts))
+
+
 def check_furnace(ctx) -> tuple:
     cfg = RenderConfig(width=32, height=32, spp=1, max_depth=2, rr_start=8,
                        scene="furnace", use_bvh=False)
@@ -571,19 +689,20 @@ def check_furnace(ctx) -> tuple:
 
 # (label, function, the kernels it must launch, --full only)
 CHECKS = (
-    ("0", check_k1_vs_brute, {"K1"}, False),
+    ("0", check_k1_vs_brute, {"K1", "CULL"}, False),
     ("1", check_k4_vs_plain, {"K4"}, False),
     ("2", check_engine_vs_oracle, set(), False),
-    ("3", check_cluster_route, {"K1", "K4"}, True),
+    ("3", check_cluster_route, {"K1", "K4", "CULL"}, True),
     ("4", check_stream_route, {"K3"}, True),
     ("5", check_k2_vs_brute, {"K2", "DDA"}, True),
     ("6", check_grid_route, {"K2", "DDA"}, True),
-    ("7", check_compaction, {"K1"}, True),
+    ("7", check_compaction, {"K1", "CULL"}, True),
     ("8", check_sphlight_vs_oracle, {"K1"}, True),
-    ("9", check_grad, {"K1"}, True),
+    ("9", check_grad, {"K1", "CULL"}, True),
     ("10", check_furnace, set(), True),
     ("11", check_reads_marked, {"K2", "DDA"}, True),
     ("12", check_dda_kernel, {"K2", "DDA"}, True),
+    ("13", check_cull_kernel, {"CULL"}, True),
 )
 
 
@@ -610,7 +729,7 @@ def main(argv=None) -> int:
         description="The kernels and the engine against brute force, the "
                     "BVH walk and the oracle, on the card.")
     ap.add_argument("--full", action="store_true",
-                    help="also checks [3]-[12]")
+                    help="also checks [3]-[13]")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("checks run on the card: no CUDA device")

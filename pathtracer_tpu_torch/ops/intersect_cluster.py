@@ -6,7 +6,9 @@ The reference's ``ops/intersect_cluster.py`` in two parts:
       exit bound, the ray features, the per-ray cluster line cull, the
       per-block near-first candidate lists, the winner decode and the
       sphere merge. The cull granularity is the reference's 512-ray block,
-      so candidate lists equal the reference's.
+      so candidate lists equal the reference's. On a CUDA tensor the
+      per-ray line cull (``ray_cluster_mask``) launches the hand-written
+      kernel in ``csrc/cluster_cull.cu``, bit-equal to its plain version.
 
   fine test (``cluster_hit``): per 512-ray block, walk the candidate
       clusters front to back and test each cluster's 128 triangles with the
@@ -64,8 +66,10 @@ _REFERENCE_BYTES_PER_COL = 48 * 2
 # at super-cluster granularity (every cluster-routed scene is below it).
 RAY_CULL_MAX_C = 512
 
-# Kernel launches through cluster_hit (CUDA tensors only).
+# Kernel launches through cluster_hit and ray_cluster_mask (CUDA tensors
+# only).
 LAUNCHES = 0
+CULL_LAUNCHES = 0
 
 
 def routes_to_cluster(n_clusters: int) -> bool:
@@ -171,8 +175,8 @@ def _inflate(cl_lo, cl_hi):
     return cl_lo - pad, cl_hi + pad
 
 
-def ray_cluster_mask(cl_lo, cl_hi, o, d, t_max):
-    """(B, C) per-ray line cull at cluster granularity.
+def ray_cluster_mask_plain(cl_lo, cl_hi, o, d, t_max):
+    """(B, C) per-ray line cull at cluster granularity, in plain PyTorch.
 
     Every ray is slab-tested against every (slightly inflated) cluster box
     within its own [T_MIN, t_max]; cluster c survives for block b iff some
@@ -195,6 +199,80 @@ def ray_cluster_mask(cl_lo, cl_hi, o, d, t_max):
     crossed = (t_out >= torch.clamp(t_in, min=C.T_MIN)) \
         & (t_in <= t_max[:, None])
     return crossed.reshape(R // RAY_BLOCK, RAY_BLOCK, n).any(dim=1)
+
+
+def _check_mask_inputs(cl_lo, cl_hi, o, d, t_max) -> None:
+    """Raises ValueError on malformed inputs of ray_cluster_mask."""
+    for name, x in (("cl_lo", cl_lo), ("cl_hi", cl_hi), ("o", o), ("d", d),
+                    ("t_max", t_max)):
+        if not isinstance(x, torch.Tensor):
+            raise ValueError(f"{name} must be a tensor; got {type(x)}")
+    if cl_lo.dim() != 2 or o.dim() != 2:
+        raise ValueError(f"cl_lo and o must be 2-d; got {tuple(cl_lo.shape)} "
+                         f"and {tuple(o.shape)}")
+    n, R = cl_lo.shape[0], o.shape[0]
+    for name, x, shape in (("cl_lo", cl_lo, (n, 3)), ("cl_hi", cl_hi, (n, 3)),
+                           ("o", o, (R, 3)), ("d", d, (R, 3)),
+                           ("t_max", t_max, (R,))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}; got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != o.device:
+            raise ValueError(f"{name} is on {x.device}, o on {o.device}")
+    if R % RAY_BLOCK:
+        raise ValueError(f"the ray count must be a multiple of {RAY_BLOCK}; "
+                         f"got {R}")
+    if not 1 <= n <= RAY_CULL_MAX_C:
+        raise ValueError(f"the per-ray cull takes 1 to {RAY_CULL_MAX_C} "
+                         f"clusters; got {n}")
+
+
+def _cull_kernel():
+    fn = _build.load("cluster_cull").cluster_cull_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ray_cluster_mask(cl_lo, cl_hi, o, d, t_max):
+    """(B, C) bool per-ray line cull at cluster granularity (see
+    ray_cluster_mask_plain): o, d (R, 3) and t_max (R,) f32 rays, R a
+    multiple of RAY_BLOCK; cl_lo, cl_hi the (C, 3) f32 cluster boxes, 1 <= C
+    <= RAY_CULL_MAX_C.
+
+    CPU tensors run the plain version. CUDA tensors launch the CUDA kernel
+    (built at first use) on the current stream, one thread per ray and no
+    (R, C) intermediate, and count the launch in CULL_LAUNCHES; a failed
+    launch raises RuntimeError. The mask is bit-equal to the plain
+    version's; it carries no gradient. Malformed inputs raise ValueError.
+    """
+    global CULL_LAUNCHES
+    _check_mask_inputs(cl_lo, cl_hi, o, d, t_max)
+    dev = o.device
+    if dev.type == "cpu":
+        return ray_cluster_mask_plain(cl_lo, cl_hi, o, d, t_max)
+    if dev.type != "cuda":
+        raise ValueError(f"ray_cluster_mask runs on cpu or cuda, not {dev}")
+    lo, hi = (x.contiguous()
+              for x in _inflate(cl_lo.detach(), cl_hi.detach()))
+    o, d, t_max = (x.detach().contiguous() for x in (o, d, t_max))
+    B, n = o.shape[0] // RAY_BLOCK, lo.shape[0]
+    mask = torch.empty((B, n), dtype=torch.bool, device=dev)
+    if B == 0:
+        return mask
+    launch = _cull_kernel()
+    with torch.cuda.device(dev):
+        err = launch(
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), mask.data_ptr(), B, n, C.T_MIN,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ray_cluster_mask kernel launch failed: CUDA "
+                           f"error {err}")
+    CULL_LAUNCHES += 1
+    return mask
 
 
 def ray_super_mask(su_lo, su_hi, cl_super, o, d, t_max,

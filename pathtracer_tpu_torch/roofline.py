@@ -62,6 +62,11 @@ OPS_PER_NODE = 24
 # u (5 + 1), three cross terms for qvec (9), v (5 + 1), t (5 + 1) and
 # u + v (1); compares not counted.
 OPS_PER_MT_TEST = 46
+# f32 operations per (ray, box) slab test of cluster_cull.cu, counted as
+# OPS_PER_NODE is: two differences and products per axis (12), their min
+# and max (6), the entry/exit reductions (4), the clamp to T_MIN and two
+# compares.
+OPS_PER_SLAB_TEST = 25
 # The rate at which int32 instructions can issue: each of an SM's four
 # schedulers issues one warp instruction (32 lanes) a clock, on 132 SMs at
 # the 1.98 GHz boost clock (NVIDIA's Hopper white paper). The INT32 pipe
@@ -108,6 +113,16 @@ def sampler_work(n_ids: int, n: int) -> tuple[int, int]:
     key's threefry block and one per draw."""
     return (n_ids * (8 + 4 * n),
             n_ids * ((1 + n) * OPS_PER_THREEFRY + n * OPS_PER_DRAW))
+
+
+def cull_work(n_rays: int, n_clusters: int) -> tuple[int, int]:
+    """(bytes, f32 operations) of one per-ray line cull (cluster_cull.cu):
+    each ray's o, d and t_max (28 bytes) and both boxes read once, the
+    (n_rays / 512, n_clusters) bool mask written once; n_rays * n_clusters
+    slab tests."""
+    return (n_rays * 28 + n_clusters * 24
+            + n_rays // ic.RAY_BLOCK * n_clusters,
+            n_rays * n_clusters * OPS_PER_SLAB_TEST)
 
 
 def tri_tests(visits, rays_per_block) -> int:

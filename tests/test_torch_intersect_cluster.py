@@ -21,6 +21,7 @@ from pathtracer_tpu.accel.clusters import with_clusters as ref_with_clusters
 from pathtracer_tpu.engine import intersect as ref_isect
 from pathtracer_tpu.ops import intersect_cluster as ref_ic
 from pathtracer_tpu.scene import builder as ref_builder
+from pathtracer_tpu_torch import checks
 from pathtracer_tpu_torch.engine import intersect as isect
 from pathtracer_tpu_torch.engine.camera import camera_rays, tiled_pixel_ids
 from pathtracer_tpu_torch.ops import intersect_cluster as ic
@@ -168,15 +169,31 @@ def test_exit_bound_and_ray_features(mesh_pair, glue_inputs):
                                atol=1e-6)
 
 
-def test_ray_masks_equal(mesh_pair, glue_inputs):
+@pytest.mark.parametrize("boxes", ["mesh", 2, 64, 512])
+def test_ray_masks_equal(mesh_pair, glue_inputs, boxes):
+    """The per-ray line cull (the plain version on the CPU) bit-equal to the
+    reference's: on cornell_mesh's clusters with the glue's rays, where the
+    super-cluster mask is held too; and on the first C of checks.py's
+    seeded boxes with its edge-case rays (cull_rays), the inputs the card's
+    kernel is held to its plain version on."""
     ref_g, g = mesh_pair
-    o, d, t_max = glue_inputs
+    if boxes == "mesh":
+        o, d, t_max = glue_inputs
+        lo, hi = g.cl_lo, g.cl_hi
+    else:
+        o, d, t_max = (x.numpy() for x in checks.cull_rays(8192, "cpu"))
+        lo, hi = checks.cull_boxes(boxes, "cpu")
     want = np.asarray(ref_ic.ray_cluster_mask(
-        jnp.asarray(ref_g.cl_lo), jnp.asarray(ref_g.cl_hi), jnp.asarray(o),
+        jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()), jnp.asarray(o),
         jnp.asarray(d), t_max))
-    got = ic.ray_cluster_mask(g.cl_lo, g.cl_hi, _t(o), _t(d), _t(t_max))
+    launches = ic.CULL_LAUNCHES
+    got = ic.ray_cluster_mask(lo, hi, _t(o), _t(d), _t(t_max))
+    assert ic.CULL_LAUNCHES == launches, "CPU tensors never launch the kernel"
+    assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0 < want.sum() < want.size
+    if boxes != "mesh":
+        return
     # The super-cluster mask, with supers of 4 clusters.
     from pathtracer_tpu.accel.clusters import build_supers
 
@@ -188,6 +205,54 @@ def test_ray_masks_equal(mesh_pair, glue_inputs):
     got = ic.ray_super_mask(_t(su_lo), _t(su_hi), _t(cl_super), _t(o), _t(d),
                             _t(t_max))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cull_rays_hold_the_edge_cases():
+    """checks.cull_rays, the kernel's test rays, hold every edge case the
+    cull's arithmetic has: direction components of 0, -0 and +-1e-21,
+    _pad_rays' zero-work rays, origins exactly on faces of cull_boxes (as
+    given and inflated), t_max below T_MIN, at T_MIN and at T_FAR; the same
+    seed gives the same rays."""
+    o, d, t_max = checks.cull_rays(8192, "cpu")
+    again = checks.cull_rays(8192, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip((o, d, t_max), again))
+    assert (d == 0).any() and (torch.signbit(d) & (d == 0)).any()
+    assert (d == 1e-21).any() and (d == -1e-21).any()
+    pad = (o == 0).all(dim=1) & (d == d.new_tensor([0.0, 0.0, 1.0])).all(
+        dim=1) & (t_max == C.T_MIN)
+    assert 0 < int(pad.sum()) < o.shape[0]
+    assert (t_max < C.T_MIN).any() and (t_max == C.T_FAR).any()
+    lo, hi = checks.cull_boxes(ic.RAY_CULL_MAX_C, "cpu")
+    lo_i, hi_i = ic._inflate(lo, hi)
+    for plane in (lo, hi, lo_i, hi_i):
+        on = (o[:, None, :] == plane[None, :, :]).any(dim=(1, 2)) & ~pad
+        assert int(on.sum()) >= 16, "origins on faces"
+
+
+@pytest.mark.parametrize("case", [
+    "double_o", "int_t_max", "o_not_3", "t_max_length", "box_shapes",
+    "rays_not_block", "too_many_clusters", "no_cluster", "not_tensor",
+])
+def test_ray_cluster_mask_rejects_bad_inputs(case):
+    """Malformed inputs raise ValueError before any work: a dtype other
+    than float32, shapes that disagree, a ray count that is no multiple of
+    RAY_BLOCK, and a cluster count outside [1, RAY_CULL_MAX_C]."""
+    o, d, t_max = checks.cull_rays(1024, "cpu")
+    lo, hi = checks.cull_boxes(64, "cpu")
+    many = torch.zeros((ic.RAY_CULL_MAX_C + 1, 3))
+    args = {
+        "double_o": (lo, hi, o.double(), d, t_max),
+        "int_t_max": (lo, hi, o, d, t_max.to(torch.int32)),
+        "o_not_3": (lo, hi, o[:, :2], d, t_max),
+        "t_max_length": (lo, hi, o, d, t_max[:-1]),
+        "box_shapes": (lo, hi[:-1], o, d, t_max),
+        "rays_not_block": (lo, hi, o[:1000], d[:1000], t_max[:1000]),
+        "too_many_clusters": (many, many, o, d, t_max),
+        "no_cluster": (lo[:0], hi[:0], o, d, t_max),
+        "not_tensor": (lo, hi, o.numpy(), d, t_max),
+    }[case]
+    with pytest.raises(ValueError):
+        ic.ray_cluster_mask(*args)
 
 
 def test_cull_candidates_equal(mesh_pair, glue_inputs):

@@ -183,7 +183,8 @@ def test_chip_smoke_imports_no_jax_and_owns_no_bound():
     without a CUDA device."""
     names = ("PEAK_F32", "PEAK_BF16", "PEAK_BYTES", "add_bound",
              "add_split_bound", "tri_tests", "warp_tests", "split_bytes",
-             "reference_work_ms", "k1_bytes", "k4_bytes", "nbytes")
+             "reference_work_ms", "k1_bytes", "k4_bytes", "nbytes",
+             "cull_work")
     code = (
         "import sys, torch\n"
         "torch.cuda.is_available = lambda: False\n"
