@@ -10,7 +10,7 @@ import time
 
 import torch
 
-from . import check, harness, trace, work
+from . import check, harness, host, trace, work
 
 
 def sync(device) -> None:
@@ -51,12 +51,21 @@ def set_up(run, Mode):
     return mode
 
 
-def measure(run, mode, metric_mods) -> None:
-    """The timed window (trace 0) or the traced one (trace 1)."""
-    if not run.trace:
-        harness.window(run, lambda i: mode.frame(i + 1))
-        harness.log_steps(run)
-        return
+def measure(run, mode, metric_mods, timed=None) -> None:
+    """The timed window (trace 0: `timed()`, by default frames back to
+    back) or the traced one (trace 1); the collector's passes in it go to
+    standard error."""
+    with host.Collector() as collector:
+        if run.trace:
+            traced(run, mode, metric_mods)
+        elif timed is not None:
+            timed()
+        else:
+            harness.window(run, lambda i: mode.frame(i + 1))
+    harness.log(f"{run.name} rank {run.rank} {collector.describe()}")
+
+
+def traced(run, mode, metric_mods) -> None:
     n = int(run.params["trace_frames"])
     with contextlib.ExitStack() as stack:
         for mod in metric_mods:
@@ -103,6 +112,8 @@ def single(run, Mode) -> dict:
     mods = [harness.load_module("metrics", m["name"]) for m in entries]
     mode = set_up(run, Mode)
     measure(run, mode, mods)
+    if not run.trace:
+        harness.log_steps(run)
     run.memory_peak_bytes = peak_memory(run.device)
     outputs = mode.outputs()
     free(mode)

@@ -1,9 +1,8 @@
 """Forward frames of the engine on one card, back to back.
 
-Frame i traces sample i of every pixel (`trace_sample` over the
-tile-ordered ids of `tiled_pixel_ids`, as bench_torch.py's loop does) and
-ends in a device barrier; its useful rays are the engine's own count. The
-check holds `check_pixels` pixels drawn from the
+Frame i traces sample i of every pixel (`trace_sample` over
+`tiled_pixel_ids`) and ends in a device barrier; its useful rays are the
+engine's own count. The check holds `check_pixels` pixels drawn from the
 seed, in the first timed frame, one frame drawn from the seed among the
 first `check_within` and the last, to the reference's render of the same
 pixels and samples: `bad_px_share` is the share of them off by more than

@@ -178,10 +178,7 @@ def _ranked(run, dev, world):
     dist.barrier()
     if run.rank == 0:
         run.setup_s = time.perf_counter() - run.t_start
-    if run.trace:
-        flow.measure(run, mode, mods)
-    else:
-        window(run, mode)
+    flow.measure(run, mode, mods, timed=lambda: window(run, mode))
     rays = mode.counter.count.clone()
     dist.all_reduce(rays)
     run.rays = int(rays)

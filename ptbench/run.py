@@ -14,10 +14,11 @@ set-up, one untimed warm frame), then frames or steps back to back for
 --seconds (--trace 0), or `trace_frames` of them under the profiler with
 spans around the program's layers (--trace 1); the device's peak memory;
 then the program's state is freed and the reference checks what the timed
-path produced. A cell on more than one card starts one process per card
-(this process is rank 0). Without as many CUDA devices as the cell asks
-for, it exits with an error and prints no result; so it does if JAX or the
-JAX package was loaded.
+path produced. Standard error also says where each rank may run and the
+collector's passes in its window (ptbench/host.py). A cell on more than
+one card starts one process per card (this process is rank 0). Without as
+many CUDA devices as the cell asks for, it exits with an error and prints
+no result; so it does if JAX or the JAX package was loaded.
 """
 
 import time
@@ -33,7 +34,7 @@ import sys  # noqa: E402
 # names (trace, stats, ...) would shadow others.
 sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-from ptbench import faults, harness  # noqa: E402
+from ptbench import faults, harness, host  # noqa: E402
 
 harness.set_cache_dirs()
 
@@ -84,6 +85,7 @@ def main(argv=None, device=None, overrides=None) -> int:
         torch.cuda.set_device(device)
     run.device = device
     run.rank = args.rank
+    harness.log(f"{args.workload} rank {args.rank}: {host.placement()}")
     mode = harness.load_module("modes", run.cell["mode"])
     with faults.planted(args.fault):
         out = mode.main(run, args)

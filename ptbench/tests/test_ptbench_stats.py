@@ -100,3 +100,10 @@ def test_trace_summary_spans_busy_and_gaps():
         summary = s
 
     assert idle.read(R) == pytest.approx(100 * (1 - 0.45))
+
+
+def test_fit_rate_reads_as_its_base():
+    run = FakeRun([0.1] * 10, 7_000_000, 1.0)
+    fit = harness.load_module("metrics", "rays_per_s.fit").read(run)
+    base = harness.load_module("metrics", "rays_per_s").read(run)
+    assert fit == base == pytest.approx(7e6)
