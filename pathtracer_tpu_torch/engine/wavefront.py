@@ -172,6 +172,36 @@ def _coherence_key(o, d, alive, scene_lo, scene_hi):
     return torch.where(alive, key, 1 << 30)
 
 
+def compact_rays(o, d, radiance, throughput, pixel_ids, slot, alive,
+                 spec_chain, prev_pdf, scene_lo, scene_hi):
+    """Stream compaction + coherence sort of the wavefront's state.
+
+    The rays are reordered by a stable sort on _coherence_key (dead rays
+    to the tail) and returned in the argument order: (o, d, radiance,
+    throughput, pixel_ids, slot, alive, spec_chain, prev_pdf). `slot`
+    carries each ray's original buffer slot, for the final unscramble.
+    """
+    key = _coherence_key(o, d, alive, scene_lo, scene_hi)
+    perm = torch.argsort(key, stable=True)
+    # One (N, 16) row gather of the packed state; ints ride as bit-cast f32
+    # columns, so the permuted values are exact.
+    flags = alive.to(torch.float32) * 2.0 + spec_chain.to(torch.float32)
+    pid32 = pixel_ids.to(torch.int32)  # wraps ids >= 2^31
+    state = torch.cat([
+        o, d, radiance, throughput,
+        pid32.view(torch.float32)[:, None],
+        slot.view(torch.float32)[:, None],
+        flags[:, None], prev_pdf[:, None],
+    ], dim=1)[perm]
+    pixel_ids = state[:, 12].contiguous().view(torch.int32) \
+        .to(torch.int64) & 0xFFFFFFFF
+    slot = state[:, 13].contiguous().view(torch.int32)
+    fl = state[:, 14]
+    return (state[:, 0:3], state[:, 3:6], state[:, 6:9], state[:, 9:12],
+            pixel_ids, slot, fl >= 2.0, (fl == 1.0) | (fl == 3.0),
+            state[:, 15])
+
+
 def _material_rows(geometry, materials) -> torch.Tensor:
     """(n_rows, 16) joined rows [albedo(3), emission(3), mat_type, ior,
     pad(8)] spanning the larger of the Materials and structural tables;
@@ -389,30 +419,10 @@ def _trace_sample(geometry, materials, camera, lights, cfg, pixel_ids,
             # --- Stream compaction / coherence sort ------------------------
             if cfg.compact:
                 with span("compact"):
-                    key = _coherence_key(o, d, alive, scene_lo, scene_hi)
-                    perm = torch.argsort(key, stable=True)
-                    # One (N, 16) row gather of the packed state; ints ride as
-                    # bit-cast f32 columns, so the permuted values are exact.
-                    flags = alive.to(torch.float32) * 2.0 \
-                        + spec_chain.to(torch.float32)
-                    pid32 = pixel_ids.to(torch.int32)  # wraps ids >= 2^31
-                    state = torch.cat([
-                        o, d, radiance, throughput,
-                        pid32.view(torch.float32)[:, None],
-                        slot.view(torch.float32)[:, None],
-                        flags[:, None], prev_pdf[:, None],
-                    ], dim=1)[perm]
-                    o = state[:, 0:3]
-                    d = state[:, 3:6]
-                    radiance = state[:, 6:9]
-                    throughput = state[:, 9:12]
-                    pixel_ids = state[:, 12].contiguous().view(torch.int32) \
-                        .to(torch.int64) & 0xFFFFFFFF
-                    slot = state[:, 13].contiguous().view(torch.int32)
-                    fl = state[:, 14]
-                    alive = fl >= 2.0
-                    spec_chain = (fl == 1.0) | (fl == 3.0)
-                    prev_pdf = state[:, 15]
+                    (o, d, radiance, throughput, pixel_ids, slot, alive,
+                     spec_chain, prev_pdf) = compact_rays(
+                        o, d, radiance, throughput, pixel_ids, slot, alive,
+                        spec_chain, prev_pdf, scene_lo, scene_hi)
 
     if cfg.compact and cfg.max_depth > 1:
         # Unscramble to the caller's ray order: `slot` is a permutation of

@@ -6,7 +6,8 @@ record_function; under a profiler the `pt.` spans nest as the layers do
 (frame > bounce > query > route > phases > reads) and carry their
 arguments in their names; the image does not change by a bit; and the
 benchmark's reduction of a trace (ptbench/trace.py) reads the same
-numbers whether the trace holds the program's spans or not.
+numbers whether the trace holds the program's spans or not; the
+benchmark's compaction span wraps each compaction of a frame.
 """
 
 import json
@@ -24,7 +25,7 @@ from pathtracer_tpu_torch.ops import intersect_grid as ig
 from pathtracer_tpu_torch.parallel.mesh import Mesh
 from pathtracer_tpu_torch.scene import builder
 from pathtracer_tpu_torch.utils import profiling
-from ptbench import harness
+from ptbench import harness, trace
 from ptbench.trace import Summary
 
 torch.set_num_threads(2)
@@ -259,6 +260,25 @@ def test_cluster_frame_spans_nest(scenes, frames):
     assert len(compacts) == cfg.max_depth - 1
     assert all(_name(p[-2]) == "bounce" for p in compacts)
     assert not any(_name(p[-1]) == "read" for p in paths)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_benchmark_compact_span_once_per_compacted_bounce(scenes, compact):
+    """Under the benchmark's spans (ptbench/spans/*.json) compact_rays runs
+    inside the program's compact span once for each bounce but the last,
+    and never without compaction."""
+    scene, cfg = scenes["cluster"]
+    cfg = cfg.replace(compact=compact)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with trace.spans(), torch.profiler.profile(activities=acts) as prof:
+        render(scene, cfg, device="cpu")
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.name in ("ptb.compact", "pt.compact"))
+    paths = _nest(spans)
+    mine = [p for p in paths if p[-1] == "ptb.compact"]
+    assert len(mine) == (cfg.max_depth - 1 if compact else 0)
+    assert all(p == ("pt.compact", "ptb.compact") for p in mine)
 
 
 @pytest.mark.parametrize("route", ["bvh", "stream"])
